@@ -1,0 +1,344 @@
+"""Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
+kernels, holds each against its plain PyTorch version, and drives the port's
+main path — the Bagheri streamer restart that `bench.py` times — at full size.
+
+    python3 chip_smoke.py
+
+Phases (each reports its elapsed seconds on stderr):
+  0. device: a CUDA device must be present, else exit 1 with no result;
+  1. build the ELL gather-sum kernel (K1) with nvcc;
+  2. K1 against its plain version at the main path's facet shape and at the
+     full-mesh cell shape, float32 and float64, then device times with
+     the inputs out of L2 (and in it, as an extra);
+  3. the main path: the bench configuration restarted from
+     bench_assets/bagheri_dz1e-5_ckpt.npz (484,155 unknowns), its float64
+     residual held to the JAX package's norms, K1 against the plain scatter
+     inside that residual, then 1 warm-up + 3 timed adaptive advances with
+     K1's launch counter reset just before and read just after.
+The script stops with a non-zero exit if any check fails or the whole run
+passes its time budget. Its last stdout line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+import json
+import os
+import signal
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+from unittest import mock
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parent
+CKPT = ROOT / "bench_assets" / "bagheri_dz1e-5_ckpt.npz"
+BUDGET_S = 600          # the whole run; a healthy run takes far less
+N_TIMED_ADVANCES = 3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+L2_BYTES = 50 * 2**20     # H100 SXM L2 cache
+# Per-equation 2-norms of the float64 residual at the checkpoint state
+# (first attempt of the restart, delta = 0), computed with the JAX package
+# on the CPU by:  JAX_PLATFORMS=cpu python tools/port_reference_norms.py
+REF_RESIDUAL_NORMS = (4.148295764358092e+17, 3.539466381528627e+17,
+                      0.0006266210202779736)
+REF_RTOL = 1e-10
+T0 = time.perf_counter()
+_phase = "start"
+
+
+class DeadlineExceeded(RuntimeError):
+    pass
+
+
+def _on_alarm(signum, frame):
+    raise DeadlineExceeded(f"phase {_phase!r} overran the {BUDGET_S} s "
+                           f"budget")
+
+
+def phase(name: str) -> None:
+    global _phase
+    _phase = name
+    log(f"phase {name}")
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke {time.perf_counter() - T0:7.1f}s] {msg}",
+          file=sys.stderr, flush=True)
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise AssertionError(msg)
+
+
+def eager_ms(fn, reps: int = 50, warmup: int = 3) -> float:
+    """CUDA-event time per call over back-to-back eager calls: the rate at
+    which the host can issue them, or the device run them if slower."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, inputs) -> float:
+    """Device time per call: the summed durations of the kernels (and
+    device copies) that the calls fn(*args), one for each entry of
+    `inputs`, run, from a profiler trace, with the idle gaps between
+    launches left out. One untimed pass over `inputs` comes first. Every
+    output is kept to the end, so no call writes into memory that an
+    earlier call left in L2."""
+    keep = [fn(*args) for args in inputs]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for args in inputs:
+            keep.append(fn(*args))
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(us > 0, "the profiler recorded no device time")
+    return us / len(inputs) / 1e3
+
+
+def k1_case(name, idx, flat, ell_scatter, ell_scatter_ref):
+    """Hold K1 against its plain version on one shape; time K1, the plain
+    version and one PyTorch call computing the same function."""
+    out = ell_scatter(flat, idx)
+    ref = ell_scatter_ref(flat, idx)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    if flat.dtype == torch.float64:
+        tol = 1e-13 * scale  # exact up to summation order
+    else:
+        tol = 1e-6 * scale   # float32, rtol 1e-6
+    check(err <= tol, f"K1 {name}: max |kernel - plain| = {err:.3e} > "
+                      f"{tol:.3e}")
+    # yardstick (never called by the port): scatter-add of the same rows
+    n_flat = flat.shape[0]
+    valid = (idx >= 0) & (idx < n_flat)
+    dofs = torch.empty(n_flat, dtype=torch.long, device=idx.device)
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None].expand_as(
+        idx)
+    dofs[idx[valid].long()] = rows[valid]
+    C = flat[0].numel()
+
+    def library(f, d):
+        return torch.zeros((idx.shape[0], C), dtype=f.dtype,
+                           device=f.device).index_add_(
+            0, d, f.reshape(n_flat, C))
+
+    lib_err = float((library(flat, dofs).reshape(ref.shape) - ref).abs()
+                    .max())
+    check(lib_err <= tol, f"index_add_ yardstick disagrees on {name}")
+    n_dofs, max_val = idx.shape
+    nbytes = (n_dofs * max_val * 4 + n_flat * C * flat.element_size()
+              + n_dofs * C * flat.element_size())
+    # Cold: the calls cycle through copies of the inputs that together
+    # hold more than twice L2, so each call reads its inputs from memory,
+    # as the bound assumes. Warm: the same inputs every call.
+    set_bytes = nbytes + dofs.numel() * dofs.element_size()
+    n_sets = max(2, -(-2 * L2_BYTES // set_bytes) + 1)
+    sets = [(flat.clone(), idx.clone(), dofs.clone()) for _ in range(n_sets)]
+    cold = [sets[i % n_sets] for i in range(max(n_sets, 20))]
+    warm = [(flat, idx, dofs)] * 20
+    timings = {}
+    for key, fn in (("", lambda f, i, d: ell_scatter(f, i)),
+                    ("plain_", lambda f, i, d: ell_scatter_ref(f, i)),
+                    ("library_", lambda f, i, d: library(f, d))):
+        timings[key + "ms"] = device_ms(fn, cold)
+        timings[key + "warm_ms"] = device_ms(fn, warm)
+        timings[key + "eager_ms"] = eager_ms(lambda: fn(flat, idx, dofs))
+    del sets, cold
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    case = {"case": name, "n_dofs": n_dofs, "max_val": max_val,
+            "n_flat": n_flat, "C": C, "dtype": str(flat.dtype),
+            "max_abs_err": err, **timings, "bound_ms": bound_ms,
+            "bytes": nbytes, "input_sets": n_sets,
+            "roofline_share": bound_ms / timings["ms"]}
+    check(case["roofline_share"] <= 1.0, f"K1 {name} ran faster than its "
+          f"memory bound: the timing is not cold")
+    log(f"K1 {name}: err {err:.3e}; cold device us: kernel "
+        f"{timings['ms'] * 1e3:.2f}, plain {timings['plain_ms'] * 1e3:.2f}, "
+        f"index_add_ {timings['library_ms'] * 1e3:.2f}, bound "
+        f"{bound_ms * 1e3:.2f} ({nbytes} B, share "
+        f"{case['roofline_share']:.3f}, {n_sets} input sets); warm device "
+        f"us: kernel {timings['warm_ms'] * 1e3:.2f}, plain "
+        f"{timings['plain_warm_ms'] * 1e3:.2f}, index_add_ "
+        f"{timings['library_warm_ms'] * 1e3:.2f}; eager us: kernel "
+        f"{timings['eager_ms'] * 1e3:.2f}, plain "
+        f"{timings['plain_eager_ms'] * 1e3:.2f}, index_add_ "
+        f"{timings['library_eager_ms'] * 1e3:.2f}")
+    return case
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 1
+    signal.signal(signal.SIGALRM, _on_alarm)
+    signal.alarm(BUDGET_S)
+
+    phase("0 device")
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        "nvidia-smi gave no answer"
+    log(f"{kind} x{count}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+
+    from fedm_tpu_torch.ops import cuda_build
+    from fedm_tpu_torch.ops.ell_scatter import (SOURCE, ell_scatter,
+                                                ell_scatter_ref)
+
+    phase("1 build K1")
+    t = time.perf_counter()
+    path, nvcc_out = cuda_build.build(SOURCE)
+    log(f"built {path.name} in {time.perf_counter() - t:.1f} s")
+    for line in nvcc_out.splitlines():
+        if "ptxas" in line:
+            log(line.strip())
+
+    phase("2 K1 vs plain")
+    from fedm_tpu_torch.fem.assembly import build_ell_index
+    from fedm_tpu_torch.io import load_checkpoint
+    from fedm_tpu_torch.model.system import StepParams
+    from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel
+    from fedm_tpu_torch.solvers.newton import NewtonConfig
+
+    # the bench configuration (bench.py:88-111)
+    nc = NewtonConfig(rtol=1e-3, max_iter=20, linear_tol=3e-2,
+                      linear_maxiter=400, accept_reduction=3e-2,
+                      hi_residual=True)
+    cfg = StreamerConfig(dtype=torch.float32, newton=nc,
+                         z_corridor=(0.0, 1.08e-2, 1e-5),
+                         density_floor=1e13, r_corridor=(2e-3, 2e-5))
+    model = StreamerModel(cfg, device="cuda")
+    model.system.use_gather_scatter()
+    fb = model.system.facet_kernels[0][0]
+    n_dofs = model.space.n_dofs
+    log(f"model built: {n_dofs} nodes, {model.mesh.n_cells} cells, "
+        f"{fb.n_facets} electrode facets, facet ELL "
+        f"{tuple(fb.gather_idx.shape)}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cell_idx = torch.as_tensor(build_ell_index(model.batch.dofs_np, n_dofs),
+                               device="cuda")
+    shapes = [("facet", fb.gather_idx, fb.dofs.numel(), 3),
+              ("facet-blocks", fb.gather_idx, fb.dofs.numel(), 9),
+              ("cell", cell_idx, model.batch.dofs.numel(), 3)]
+    cases = []
+    for name, idx, n_flat, C in shapes:
+        for dtype in (torch.float32, torch.float64):
+            flat = torch.randn((n_flat, C), generator=gen, device="cuda",
+                               dtype=dtype)
+            cases.append(k1_case(f"{name} C={C} {str(dtype)[6:]}", idx,
+                                 flat, ell_scatter, ell_scatter_ref))
+
+    phase("3 main path")
+    state = load_checkpoint(CKPT, device="cuda")
+    check(state.u.shape[0] == n_dofs, "checkpoint/mesh mismatch")
+    params = StepParams(state.t + state.dt, state.dt, state.dt_old)
+    F = model.system.residual(state.u, state.u, state.u_old, params,
+                              torch.float64)
+    norms = [float(torch.linalg.vector_norm(F[:, k])) for k in range(3)]
+    rel = [abs(a - b) / b for a, b in zip(norms, REF_RESIDUAL_NORMS)]
+    log(f"f64 residual norms {norms}, rel. to JAX {rel}")
+    check(max(rel) <= REF_RTOL, f"residual norms off the JAX reference by "
+                                f"{max(rel):.3e} > {REF_RTOL}")
+    with mock.patch("fedm_tpu_torch.fem.assembly.ell_scatter",
+                    ell_scatter_ref):
+        F_plain = model.system.residual(state.u, state.u, state.u_old,
+                                        params, torch.float64)
+    k1_rel = [float(torch.linalg.vector_norm(F[:, k] - F_plain[:, k])
+                    / max(float(torch.linalg.vector_norm(F_plain[:, k])),
+                          1e-300)) for k in range(3)]
+    log(f"residual with K1 vs plain scatter: rel. diff {k1_rel}")
+    check(max(k1_rel) <= 1e-12, "K1 residual disagrees with the plain one")
+
+    driver = model.make_driver()
+    t = time.perf_counter()
+    state = driver.advance(state)
+    torch.cuda.synchronize()
+    log(f"warm-up advance {time.perf_counter() - t:.2f} s, t = "
+        f"{state.t:.6e}, dt = {state.dt:.3e}")
+    t_start, acc0, rej0 = state.t, state.n_accepted, state.n_rejected
+    torch.cuda.reset_peak_memory_stats()
+    ell_scatter.launches = 0
+    step_s = []
+    for _ in range(N_TIMED_ADVANCES):
+        t = time.perf_counter()
+        state = driver.advance(state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        log(f"advance {step_s[-1]:.2f} s, t = {state.t:.6e}, dt = "
+            f"{state.dt:.3e}, accepted {state.n_accepted}, rejected "
+            f"{state.n_rejected}")
+    launches = ell_scatter.launches
+    peak = torch.cuda.max_memory_allocated()
+    accepted = state.n_accepted - acc0
+    attempts = accepted + state.n_rejected - rej0
+    check(all(bool(torch.isfinite(x).all())
+              for x in (state.u, state.u_old, state.u_old1)),
+          "non-finite state")
+    check(state.t > t_start and accepted == N_TIMED_ADVANCES,
+          "time or accepted count did not grow")
+    check(launches > 0, "the main path never launched K1")
+    log(f"median {statistics.median(step_s):.3f} s/advance over "
+        f"{N_TIMED_ADVANCES} (smoke number), accepted/attempted "
+        f"{accepted}/{attempts}, K1 launches {launches}, peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    signal.alarm(0)
+
+    main_case = cases[0]  # facet C=3 float32: the main path's usual launch
+    kernels = [{
+        "name": "ell_scatter", "route": "cuda",
+        "source": "fedm_tpu_torch/csrc/ell_scatter.cu",
+        "replaces": "fedm_tpu/ops/pallas_scatter.py:34",
+        "launches": launches,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
+        "library_ms": main_case["library_ms"], "cases": cases}]
+    print(json.dumps({
+        "kernels": kernels,
+        "main_path": {"unknowns": n_dofs * model.n_eq,
+                      "advance_s": step_s,
+                      "median_advance_s": statistics.median(step_s),
+                      "accepted": accepted, "attempts": attempts,
+                      "peak_bytes": peak, "residual_norms": norms,
+                      "residual_rel_to_jax": rel}}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": kind, "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        code = main()
+    except DeadlineExceeded as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
+        code = 1
+    except Exception as exc:  # report the phase, then fail the run
+        import traceback
+
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED in phase {_phase!r}: {exc}",
+              file=sys.stderr, flush=True)
+        code = 1
+    sys.stdout.flush()
+    os._exit(code)

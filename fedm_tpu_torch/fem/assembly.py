@@ -1,0 +1,301 @@
+"""Batched element assembly: gather -> per-element tensor ops -> scatter.
+
+Element kernels are functions of *gathered* element values
+``u_e [n_cells, n_local, ...]``; `value`/`grad`/`mass`/`stiffness` evaluate
+them at quadrature points and contract back against the test functions.
+Two scatter layouts serve the two batch kinds of the streamer:
+
+- structured: on the canonical `rectangle_mesh` ordering, gather is six
+  contiguous slices of the [ny+1, nx+1] vertex grid and scatter six
+  slice-adds — no index chasing at all;
+- ELL: per destination dof, the static list of flat contribution rows,
+  summed by the ELL gather-sum kernel (`ops.ell_scatter`).
+
+Axisymmetric weighting (`2*pi*r`) is folded into the per-quadrature-point
+`scale` at setup. Host geometry is computed in float64 numpy exactly as the
+JAX package computes it, then stored in the batch's compute dtype.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+
+from ..constants import pi
+from ..ops.ell_scatter import ell_scatter
+from .elements import cell_quadrature, facet_quadrature, tabulate
+from .space import FunctionSpace
+
+
+def _scale_like(scale: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Broadcast scale [c, q] against s [c, q, ...]."""
+    return scale.reshape(tuple(scale.shape) + (1,) * (s.dim() - 2))
+
+
+def _inverse_jacobians(x_cells: np.ndarray):
+    """Affine maps of triangles x_cells [n, 3, 2]: (detJ [n], invJ [n,2,2])."""
+    x0 = x_cells[:, 0]
+    J = np.stack([x_cells[:, 1] - x0, x_cells[:, 2] - x0], axis=2)
+    detJ = J[:, 0, 0] * J[:, 1, 1] - J[:, 0, 1] * J[:, 1, 0]
+    invJ = np.stack([np.stack([J[:, 1, 1], -J[:, 0, 1]], axis=1),
+                     np.stack([-J[:, 1, 0], J[:, 0, 0]], axis=1)],
+                    axis=1) / detJ[:, None, None]
+    return detJ, invJ
+
+
+def build_ell_index(dofs: np.ndarray, n_dofs: int) -> np.ndarray:
+    """ELL table [n_dofs, max_val] of flat contribution rows per destination
+    dof, padded with the sentinel `dofs.size` (one past the last row)."""
+    flat = np.asarray(dofs).reshape(-1)
+    L = flat.size
+    max_val = int(np.bincount(flat, minlength=n_dofs).max())
+    idx = np.full((n_dofs, max_val), L, dtype=np.int64)
+    order = np.argsort(flat, kind="stable")
+    sorted_d = flat[order]
+    seg_start = np.searchsorted(sorted_d, np.arange(n_dofs))
+    idx[sorted_d, np.arange(L) - seg_start[sorted_d]] = order
+    return idx.astype(np.int32)
+
+
+class _Batch:
+    """Shared scatter / dtype handling of cell and facet batches."""
+
+    _FLOAT_FIELDS: tuple = ()
+    gather_idx = None  # ELL table [n_dofs, max_val] int32 on the device
+    _structured = None  # (nx, ny) when slice/pad assembly is active
+
+    def astype(self, dtype) -> "_Batch":
+        """A view of this batch with its float tables cast to `dtype`
+        (cached). Casting the stored tables — not recomputing them — keeps
+        a float64 evaluation on exactly the float32 geometry, as the JAX
+        package's promotion of mixed f32/f64 einsums does."""
+        if dtype == self.dtype:
+            return self
+        views = self.__dict__.setdefault("_views", {})
+        if dtype not in views:
+            view = copy.copy(self)
+            view.__dict__["_views"] = {}
+            for f in self._FLOAT_FIELDS:
+                setattr(view, f, getattr(self, f).to(dtype))
+            view.dtype = dtype
+            views[dtype] = view
+        return views[dtype]
+
+    def build_scatter_meta(self) -> None:
+        """Switch `scatter` to the ELL gather-sum layout."""
+        self.gather_idx = torch.as_tensor(
+            build_ell_index(self.dofs_np, self.n_dofs), device=self.device)
+
+    def scatter(self, contrib: torch.Tensor) -> torch.Tensor:
+        """[n_elems, n_local, ...] -> global [n_dofs, ...]."""
+        trailing = tuple(contrib.shape[2:])
+        if self._structured is not None:
+            nx, ny = self._structured
+            C = contrib.reshape((2, ny, nx, 3) + trailing)
+            out = torch.zeros((ny + 1, nx + 1) + trailing,
+                              dtype=contrib.dtype, device=contrib.device)
+            for b, offs in enumerate(self._offsets):
+                for l, (dy, dx) in enumerate(offs):
+                    out[dy:dy + ny, dx:dx + nx] += C[b, :, :, l]
+            return out.reshape((self.n_dofs,) + trailing)
+        if self.gather_idx is None:
+            self.build_scatter_meta()
+        flat = contrib.reshape((-1,) + trailing).contiguous()
+        return ell_scatter(flat, self.gather_idx)
+
+    def integrate(self, s: torch.Tensor) -> torch.Tensor:
+        """Integral of s [n_elems, n_q, ...] over the batch."""
+        return torch.sum(s * _scale_like(self.scale, s), dim=(0, 1))
+
+
+class CellBatch(_Batch):
+    """Cell-integral data for one P1 space + quadrature.
+
+    Device tensors:
+      N      [n_q, 3]              reference shape values
+      grads  [n_cells, 1, 3, 2]    physical shape gradients (affine P1)
+      scale  [n_cells, n_q]        w_q * |detJ| * (2*pi*r | 1)
+      dofs   [n_cells, 3]
+    """
+
+    _FLOAT_FIELDS = ("N", "grads", "scale")
+
+    def __init__(self, space: FunctionSpace, quad_degree: int = 4,
+                 axisymmetric: bool = False, dtype=None, *, device):
+        dtype = torch.float64 if dtype is None else dtype
+        mesh = space.mesh
+        self.space = space
+        self.axisymmetric = axisymmetric
+        self.dtype = dtype
+        self.device = torch.device(device)
+        pts, wts = cell_quadrature(quad_degree)
+        N, dN = tabulate(pts)
+        self.n_q = len(wts)
+        self.n_local = space.n_local
+        self.n_dofs = space.n_dofs
+
+        x_cells = mesh.coords[mesh.cells]
+        detJ, invJ = _inverse_jacobians(x_cells)
+        # physical gradients, q-independent for affine P1
+        grads = np.einsum("qak,ckd->cqad", dN, invJ)[:, :1]
+        x_q = np.einsum("qa,cad->cqd", N, x_cells)
+        scale = wts[None, :] * np.abs(detJ)[:, None]
+        if axisymmetric:
+            scale = scale * (2.0 * pi * x_q[:, :, 0])
+
+        def put(a):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=self.device)
+
+        self.N = put(N)
+        self.grads = put(grads)
+        self.scale = put(scale)
+        self.dofs_np = space.cell_dofs
+        self.dofs = torch.as_tensor(space.cell_dofs, device=self.device)
+
+    # -- structured (tensor-product grid) assembly ---------------------------
+
+    def try_structured(self) -> bool:
+        """Engage slice/pad gather/scatter if the cells follow the canonical
+        `rectangle_mesh` layout; returns whether it engaged."""
+        d = self.dofs_np
+        nx = int(d[0, 2]) - 2  # cell 0 = (ll=0, lr=1, ur=nx+2)
+        n_cells = d.shape[0]
+        if nx <= 0 or n_cells % (2 * nx):
+            return False
+        ny = n_cells // (2 * nx)
+        if (nx + 1) * (ny + 1) != self.n_dofs:
+            return False
+        ix, iy = np.meshgrid(np.arange(nx), np.arange(ny), indexing="xy")
+
+        def vid(dx, dy):
+            return ((iy + dy) * (nx + 1) + ix + dx).ravel()
+
+        expect = np.concatenate([
+            np.stack([vid(0, 0), vid(1, 0), vid(1, 1)], axis=1),
+            np.stack([vid(0, 0), vid(1, 1), vid(0, 1)], axis=1)])
+        if not np.array_equal(d, expect):
+            return False
+        self._structured = (nx, ny)
+        # (dy, dx) of each (block, local) vertex
+        self._offsets = (((0, 0), (0, 1), (1, 1)), ((0, 0), (1, 1), (1, 0)))
+        return True
+
+    # -- evaluation on gathered element values -------------------------------
+
+    def gather(self, u: torch.Tensor) -> torch.Tensor:
+        """Nodal [n_dofs, ...] -> element values [n_cells, 3, ...]."""
+        if self._structured is None:
+            return u[self.dofs]
+        nx, ny = self._structured
+        trailing = tuple(u.shape[1:])
+        U = u.reshape((ny + 1, nx + 1) + trailing)
+        blocks = [torch.stack([U[dy:dy + ny, dx:dx + nx].reshape(
+            (nx * ny,) + trailing) for dy, dx in offs], dim=1)
+            for offs in self._offsets]
+        return torch.cat(blocks, dim=0)
+
+    def value(self, u_e: torch.Tensor) -> torch.Tensor:
+        """[n_cells, 3, ...] -> values at quadrature points [n_cells, n_q, ...]."""
+        return torch.einsum("qa,ca...->cq...", self.N, u_e)
+
+    def grad(self, u_e: torch.Tensor) -> torch.Tensor:
+        """[n_cells, 3, ...] -> gradients [n_cells, n_q, 2, ...]."""
+        g = torch.einsum("cqad,ca...->cqd...", self.grads, u_e)
+        return g.expand((g.shape[0], self.n_q) + tuple(g.shape[2:]))
+
+    def mass(self, s: torch.Tensor) -> torch.Tensor:
+        """Integral of s * phi_a: s [n_cells, n_q, ...] -> [n_cells, 3, ...]."""
+        return torch.einsum("qa,cq...->ca...", self.N,
+                            s * _scale_like(self.scale, s))
+
+    def stiffness(self, G: torch.Tensor) -> torch.Tensor:
+        """Integral of G . grad phi_a: G [n_cells, n_q, 2, ...] -> [n_cells, 3, ...]."""
+        Gq = (G * _scale_like(self.scale, G)).sum(dim=1)
+        return torch.einsum("cad,cd...->ca...", self.grads[:, 0], Gq)
+
+
+class FacetBatch(_Batch):
+    """Boundary-facet integral data for the facets carrying `markers`,
+    evaluated through the adjacent cell's basis restricted to the facet (so
+    normal gradients come from the same gathered values).
+
+    Device tensors:
+      N       [n_f, n_q, 3]        cell shape values at facet quad points
+      grads   [n_f, 1, 3, 2]       cell shape gradients
+      scale   [n_f, n_q]           w_q * |facet| * (2*pi*r | 1)
+      normal  [n_f, 2]             outward unit normals
+      dofs    [n_f, 3]             adjacent-cell dofs
+    """
+
+    _FLOAT_FIELDS = ("N", "grads", "scale", "normal")
+
+    def __init__(self, space: FunctionSpace, markers: list,
+                 quad_degree: int = 4, axisymmetric: bool = False,
+                 dtype=None, *, device):
+        dtype = torch.float64 if dtype is None else dtype
+        mesh = space.mesh
+        self.space = space
+        self.dtype = dtype
+        self.device = torch.device(device)
+        sel = np.where(np.isin(mesh.facet_markers, markers))[0]
+        self.n_facets = n_f = len(sel)
+        self.n_local = space.n_local
+        self.n_dofs = space.n_dofs
+
+        facets = mesh.boundary_facets[sel]
+        cells_adj = mesh.boundary_cells[sel]
+        cell_verts = mesh.cells[cells_adj]
+        spts, wts = facet_quadrature(quad_degree)
+        self.n_q = n_q = len(wts)
+
+        # facet quadrature points in the adjacent cell's reference coords
+        ref_verts = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
+        local_idx = np.stack([np.argmax(cell_verts == facets[:, j:j + 1],
+                                        axis=1) for j in range(2)], axis=1)
+        a_ref = ref_verts[local_idx[:, 0]]
+        b_ref = ref_verts[local_idx[:, 1]]
+        s = spts[:, 0]
+        ref_q = (a_ref[:, None, :] * (1.0 - s)[None, :, None]
+                 + b_ref[:, None, :] * s[None, :, None])
+        measure = np.linalg.norm(mesh.coords[facets[:, 1]]
+                                 - mesh.coords[facets[:, 0]], axis=1)
+
+        N_flat, dN_flat = tabulate(ref_q.reshape(-1, 2))
+        N = N_flat.reshape(n_f, n_q, 3)
+        dN = dN_flat.reshape(n_f, n_q, 3, 2)
+        x_cells = mesh.coords[cell_verts]
+        _, invJ = _inverse_jacobians(x_cells)
+        grads = np.einsum("fqak,fkd->fqad", dN, invJ)[:, :1]
+        x_q = np.einsum("fqa,fad->fqd", N, x_cells)
+        scale = wts[None, :] * measure[:, None]
+        if axisymmetric:
+            scale = scale * (2.0 * pi * x_q[:, :, 0])
+
+        def put(a):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=self.device)
+
+        self.N = put(N)
+        self.grads = put(grads)
+        self.scale = put(scale)
+        self.normal = put(mesh.facet_normals()[sel])
+        self.dofs_np = space.cell_dofs[cells_adj]
+        self.dofs = torch.as_tensor(self.dofs_np, device=self.device)
+
+    def gather(self, u: torch.Tensor) -> torch.Tensor:
+        return u[self.dofs]
+
+    def value(self, u_e: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("fqa,fa...->fq...", self.N, u_e)
+
+    def grad(self, u_e: torch.Tensor) -> torch.Tensor:
+        g = torch.einsum("fqad,fa...->fqd...", self.grads, u_e)
+        return g.expand((g.shape[0], self.n_q) + tuple(g.shape[2:]))
+
+    def mass(self, s: torch.Tensor) -> torch.Tensor:
+        """Boundary integral of s * phi_a: [n_f, n_q, ...] -> [n_f, 3, ...]."""
+        return torch.einsum("fqa,fq...->fa...", self.N,
+                            s * _scale_like(self.scale, s))

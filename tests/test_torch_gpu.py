@@ -1,0 +1,130 @@
+"""The port on the card: the ELL gather-sum kernel against its plain
+version, and the streamer main path on CUDA at a small size against the
+same path on the CPU.
+
+These tests are marked `gpu` and skip without a CUDA device. They import
+only the port, so they also run where JAX is not installed; on a GPU host
+run them (without the JAX-configuring conftest) with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fedm_tpu_torch.convert import state_from_arrays
+from fedm_tpu_torch.model.system import StepParams
+from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel
+from fedm_tpu_torch.ops.ell_scatter import ell_scatter, ell_scatter_ref
+from fedm_tpu_torch.solvers.newton import NewtonConfig
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _ell_case(C, seed=0):
+    """The case of tests/unit/test_pallas_scatter.py with a trailing width
+    C: random rows, about a fifth of the entries the padding sentinel."""
+    rng = np.random.default_rng(seed)
+    n_flat, n_dofs, val = 301, 100, 7
+    flat = rng.standard_normal((n_flat, C))
+    idx = rng.integers(0, n_flat, (n_dofs, val))
+    idx[rng.random((n_dofs, val)) < 0.2] = n_flat
+    return flat, idx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [1, 3, 9])
+def test_ell_scatter_kernel_matches_plain(cuda, C, dtype):
+    flat, idx = _ell_case(C)
+    f = torch.as_tensor(flat, dtype=dtype, device=cuda)
+    i = torch.as_tensor(idx, dtype=torch.int32, device=cuda)
+    before = ell_scatter.launches
+    out = ell_scatter(f, i)
+    torch.cuda.synchronize()
+    assert ell_scatter.launches == before + 1
+    ref = ell_scatter_ref(f, i)
+    # float64: exact up to summation order; float32: rtol 1e-6
+    rtol = 1e-13 if dtype == torch.float64 else 1e-6
+    assert out.shape == (100, C) and out.dtype == dtype
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=rtol, atol=rtol * np.abs(flat).max())
+
+
+def test_ell_scatter_raises_on_what_it_does_not_take(cuda):
+    flat, idx = _ell_case(3)
+    f = torch.as_tensor(flat, device=cuda)
+    i = torch.as_tensor(idx, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        ell_scatter(f.half(), i)
+    with pytest.raises(TypeError):
+        ell_scatter(f, i.long())
+    with pytest.raises(ValueError):
+        ell_scatter(f.t().contiguous().t(), i)
+    with pytest.raises(ValueError):
+        ell_scatter(f, i.cpu())
+
+
+def _small_model(device):
+    nc = NewtonConfig(rtol=1e-3, max_iter=20, linear_tol=1e-4,
+                      linear_maxiter=200, accept_reduction=3e-2,
+                      hi_residual=True)
+    cfg = StreamerConfig(z_corridor=(7e-3, 8.5e-3, 5e-5), newton=nc,
+                         r_corridor=(2e-3, 2e-4), z_tail_cells=(12, 12),
+                         mg_levels=3,
+                         dtype=torch.float32, density_floor=1e13)
+    model = StreamerModel(cfg, device=device)
+    model.system.use_gather_scatter()
+    return model
+
+
+def _uniform_state(model):
+    """Uniform 1e13 m^-3 background with the exact (charge-free) linear
+    potential between the electrodes."""
+    z = model.space.dof_coords[:, 1]
+    u = np.stack([np.full_like(z, np.log(1e13)), np.full_like(z, np.log(1e13)),
+                  model.cfg.U_w * z / model.cfg.box_height], axis=-1)
+    return dict(u=u, u_old=u, u_old1=u, t=0.0, dt=1e-12, dt_old=1e30,
+                max_error=np.ones(3), n_accepted=0, n_rejected=0)
+
+
+def test_main_path_small_on_cuda(cuda):
+    gpu, cpu = _small_model(cuda), _small_model("cpu")
+    arrays = _uniform_state(cpu)
+    sg = state_from_arrays(arrays, device=cuda)
+    sc = state_from_arrays(arrays, device="cpu")
+    rng = np.random.default_rng(0)
+    # perturbation: 1e-3 in the log-densities, 10 V in the potential (a
+    # Poisson residual far from its cancelling linear-ramp solution)
+    u = arrays["u"] + rng.standard_normal(arrays["u"].shape) * [1e-3, 1e-3,
+                                                                10.0]
+    p = StepParams(1e-12, 1e-12, 1e30)
+    Fg = gpu.system.residual(torch.as_tensor(u, device=cuda), sg.u, sg.u_old,
+                             p, torch.float64).cpu().numpy()
+    Fc = cpu.system.residual(torch.as_tensor(u), sc.u, sc.u_old, p,
+                             torch.float64).numpy()
+    for k in range(3):
+        assert np.abs(Fg[:, k] - Fc[:, k]).max() <= 1e-12 * np.abs(
+            Fc[:, k]).max()
+
+    before = ell_scatter.launches
+    sg = gpu.make_driver().advance(sg)
+    sc = cpu.make_driver().advance(sc)
+    assert ell_scatter.launches > before
+    assert sg.n_accepted == sc.n_accepted == 1
+    assert sg.t == sc.t == 1e-12
+    assert all(bool(torch.isfinite(x).all()) for x in (sg.u, sg.u_old))
+    # float32 Krylov on another device sums in another order: the step
+    # error, and so the next dt, agree to f32-amplified rounding only
+    assert abs(sg.dt - sc.dt) <= 1e-4 * sc.dt
+    ug, uc = sg.u.cpu().numpy(), sc.u.numpy()
+    for k in range(3):
+        assert np.abs(ug[:, k] - uc[:, k]).max() <= 1e-6 * np.abs(
+            uc[:, k]).max()
