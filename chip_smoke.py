@@ -7,14 +7,19 @@ main path — the Bagheri streamer restart that `bench.py` times — at full siz
 Phases (each reports its elapsed seconds on stderr):
   0. device: a CUDA device must be present, else exit 1 with no result;
   1. build the ELL gather-sum kernel (K1) with nvcc;
-  2. K1 against its plain version at the main path's facet shape and at the
-     full-mesh cell shape, float32 and float64, then device times with
-     the inputs out of L2 (and in it, as an extra);
+  2. K1 against its plain version, float32 and float64: the dense form at
+     the main path's facet shape and at the full-mesh cell shape, then
+     device times with L2 flushed before every call (and warm, as an
+     extra); the
+     compact form (out[rows] += ..., the one the main path runs) at the
+     facet shape, timed cold and warm beside its plain version, in-place
+     `index_add_`, the dense path it replaced (out + dense scatter) and an
+     empty kernel (the floor of a launch);
   3. the main path: the bench configuration restarted from
      bench_assets/bagheri_dz1e-5_ckpt.npz (484,155 unknowns), its float64
      residual held to the JAX package's norms, K1 against the plain scatter
      inside that residual, then 1 warm-up + 3 timed adaptive advances with
-     K1's launch counter reset just before and read just after.
+     both of K1's launch counters reset just before and read just after.
 The script stops with a non-zero exit if any check fails or the whole run
 passes its time budget. Its last stdout line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -31,14 +36,14 @@ from pathlib import Path
 from unittest import mock
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+
+from fedm_tpu_torch.devtime import (HBM_BYTES_PER_S, device_ms, eager_ms,
+                                    l2_flush)
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "bench_assets" / "bagheri_dz1e-5_ckpt.npz"
 BUDGET_S = 600          # the whole run; a healthy run takes far less
 N_TIMED_ADVANCES = 3
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-L2_BYTES = 50 * 2**20     # H100 SXM L2 cache
 # Per-equation 2-norms of the float64 residual at the checkpoint state
 # (first attempt of the restart, delta = 0), computed with the JAX package
 # on the CPU by:  JAX_PLATFORMS=cpu python tools/port_reference_norms.py
@@ -74,45 +79,11 @@ def check(ok: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def eager_ms(fn, reps: int = 50, warmup: int = 3) -> float:
-    """CUDA-event time per call over back-to-back eager calls: the rate at
-    which the host can issue them, or the device run them if slower."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, inputs) -> float:
-    """Device time per call: the summed durations of the kernels (and
-    device copies) that the calls fn(*args), one for each entry of
-    `inputs`, run, from a profiler trace, with the idle gaps between
-    launches left out. One untimed pass over `inputs` comes first. Every
-    output is kept to the end, so no call writes into memory that an
-    earlier call left in L2."""
-    keep = [fn(*args) for args in inputs]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for args in inputs:
-            keep.append(fn(*args))
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(us > 0, "the profiler recorded no device time")
-    return us / len(inputs) / 1e3
-
-
-def k1_case(name, idx, flat, ell_scatter, ell_scatter_ref):
+def k1_case(name, idx, flat, ell_scatter, ell_scatter_ref, flush):
     """Hold K1 against its plain version on one shape; time K1, the plain
-    version and one PyTorch call computing the same function."""
+    version and one PyTorch call computing the same function, each cold
+    (L2 flushed before every call) and warm (the same inputs every
+    call)."""
     out = ell_scatter(flat, idx)
     ref = ell_scatter_ref(flat, idx)
     torch.cuda.synchronize()
@@ -144,41 +115,97 @@ def k1_case(name, idx, flat, ell_scatter, ell_scatter_ref):
     n_dofs, max_val = idx.shape
     nbytes = (n_dofs * max_val * 4 + n_flat * C * flat.element_size()
               + n_dofs * C * flat.element_size())
-    # Cold: the calls cycle through copies of the inputs that together
-    # hold more than twice L2, so each call reads its inputs from memory,
-    # as the bound assumes. Warm: the same inputs every call.
-    set_bytes = nbytes + dofs.numel() * dofs.element_size()
-    n_sets = max(2, -(-2 * L2_BYTES // set_bytes) + 1)
-    sets = [(flat.clone(), idx.clone(), dofs.clone()) for _ in range(n_sets)]
-    cold = [sets[i % n_sets] for i in range(max(n_sets, 20))]
-    warm = [(flat, idx, dofs)] * 20
+    calls = [(flat, idx, dofs)] * 20
     timings = {}
     for key, fn in (("", lambda f, i, d: ell_scatter(f, i)),
                     ("plain_", lambda f, i, d: ell_scatter_ref(f, i)),
                     ("library_", lambda f, i, d: library(f, d))):
-        timings[key + "ms"] = device_ms(fn, cold)
-        timings[key + "warm_ms"] = device_ms(fn, warm)
+        timings[key + "ms"] = device_ms(fn, calls, flush)
+        timings[key + "warm_ms"] = device_ms(fn, calls)
         timings[key + "eager_ms"] = eager_ms(lambda: fn(flat, idx, dofs))
-    del sets, cold
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     case = {"case": name, "n_dofs": n_dofs, "max_val": max_val,
             "n_flat": n_flat, "C": C, "dtype": str(flat.dtype),
             "max_abs_err": err, **timings, "bound_ms": bound_ms,
-            "bytes": nbytes, "input_sets": n_sets,
-            "roofline_share": bound_ms / timings["ms"]}
+            "bytes": nbytes, "roofline_share": bound_ms / timings["ms"]}
     check(case["roofline_share"] <= 1.0, f"K1 {name} ran faster than its "
           f"memory bound: the timing is not cold")
     log(f"K1 {name}: err {err:.3e}; cold device us: kernel "
         f"{timings['ms'] * 1e3:.2f}, plain {timings['plain_ms'] * 1e3:.2f}, "
         f"index_add_ {timings['library_ms'] * 1e3:.2f}, bound "
         f"{bound_ms * 1e3:.2f} ({nbytes} B, share "
-        f"{case['roofline_share']:.3f}, {n_sets} input sets); warm device "
+        f"{case['roofline_share']:.3f}); warm device "
         f"us: kernel {timings['warm_ms'] * 1e3:.2f}, plain "
         f"{timings['plain_warm_ms'] * 1e3:.2f}, index_add_ "
         f"{timings['library_warm_ms'] * 1e3:.2f}; eager us: kernel "
         f"{timings['eager_ms'] * 1e3:.2f}, plain "
         f"{timings['plain_eager_ms'] * 1e3:.2f}, index_add_ "
         f"{timings['library_eager_ms'] * 1e3:.2f}")
+    return case
+
+
+def k1_compact_case(name, rows, idx, dense_idx, dofs, flat, n_dofs, k1,
+                    gen, flush):
+    """Hold K1's compact form, out[rows] += sum_v flat[idx[:, v]], against
+    its plain version and against the dense path it replaced, then time
+    it, the plain version, in-place `index_add_` (one PyTorch call with the
+    same function, never called by the port), the replaced path
+    out + ell_scatter(flat, dense_idx), and the empty kernel on the same
+    grid (the floor of a launch), each cold (L2 flushed before every call)
+    and warm (the same inputs every call)."""
+    C = flat.shape[1]
+    out0 = torch.randn((n_dofs, C), generator=gen, device="cuda",
+                       dtype=flat.dtype)
+    got = k1.ell_scatter_add_(out0.clone(), flat, idx, rows)
+    ref = k1.ell_scatter_add_ref(out0.clone(), flat, idx, rows)
+    replaced = out0 + k1.ell_scatter(flat, dense_idx)
+    lib = out0.clone().index_add_(0, dofs, flat)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    tol = (1e-13 if flat.dtype == torch.float64 else 1e-6) * scale
+    check(err <= tol, f"K1 {name}: max |kernel - plain| = {err:.3e} > "
+                      f"{tol:.3e}")
+    # same slots in the same order: bitwise the dense path's sums, and the
+    # rows the table leaves out untouched
+    check(torch.equal(got, replaced), f"K1 {name} differs from out + "
+                                      f"the dense scatter")
+    check(float((lib - ref).abs().max()) <= tol,
+          f"index_add_ yardstick disagrees on {name}")
+    n_rows, max_val = idx.shape
+    size = flat.element_size()
+    nbytes = (n_rows * 4 + n_rows * max_val * 4 + flat.shape[0] * C * size
+              + 2 * n_rows * C * size)  # rows, idx, flat, out read + write
+    fns = {"": lambda o: k1.ell_scatter_add_(o, flat, idx, rows),
+           "plain_": lambda o: k1.ell_scatter_add_ref(o, flat, idx, rows),
+           "library_": lambda o: o.index_add_(0, dofs, flat),
+           "replaced_path_": lambda o: o + k1.ell_scatter(flat, dense_idx),
+           "floor_": lambda o: k1.ell_noop(n_rows, C)}
+    calls = [(out0,)] * 20
+    timings = {}
+    for key, fn in fns.items():
+        timings[key + "ms"] = device_ms(fn, calls, flush)
+        timings[key + "warm_ms"] = device_ms(fn, calls)
+        timings[key + "eager_ms"] = eager_ms(lambda: fn(out0))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    case = {"case": name, "form": "compact", "n_rows": n_rows,
+            "n_dofs": n_dofs, "max_val": max_val, "n_flat": flat.shape[0],
+            "C": C, "dtype": str(flat.dtype), "max_abs_err": err,
+            **timings, "bound_ms": bound_ms, "bytes": nbytes,
+            "roofline_share": bound_ms / timings["ms"],
+            "vs_index_add": timings["ms"] / timings["library_ms"],
+            "vs_replaced_path": timings["ms"] / timings["replaced_path_ms"]}
+    check(case["roofline_share"] <= 1.0, f"K1 {name} ran faster than its "
+          f"memory bound")
+    us = {k: v * 1e3 for k, v in timings.items()}
+    log(f"K1 {name}: err {err:.3e}; cold device us: kernel {us['ms']:.2f}, "
+        f"floor {us['floor_ms']:.2f}, plain {us['plain_ms']:.2f}, "
+        f"index_add_ {us['library_ms']:.2f}, out + dense "
+        f"{us['replaced_path_ms']:.2f}, bound {bound_ms * 1e3:.4f} ({nbytes} B); "
+        f"warm device us: kernel {us['warm_ms']:.2f}, floor "
+        f"{us['floor_warm_ms']:.2f}, index_add_ {us['library_warm_ms']:.2f}, "
+        f"out + dense {us['replaced_path_warm_ms']:.2f}; eager us: kernel "
+        f"{us['eager_ms']:.2f}, index_add_ {us['library_eager_ms']:.2f}")
     return case
 
 
@@ -202,7 +229,10 @@ def main() -> int:
         f"{torch.version.cuda}")
 
     from fedm_tpu_torch.ops import cuda_build
+    from fedm_tpu_torch.ops import ell_scatter as k1
     from fedm_tpu_torch.ops.ell_scatter import (SOURCE, ell_scatter,
+                                                ell_scatter_add_,
+                                                ell_scatter_add_ref,
                                                 ell_scatter_ref)
 
     phase("1 build K1")
@@ -232,9 +262,11 @@ def main() -> int:
     fb = model.system.facet_kernels[0][0]
     n_dofs = model.space.n_dofs
     log(f"model built: {n_dofs} nodes, {model.mesh.n_cells} cells, "
-        f"{fb.n_facets} electrode facets, facet ELL "
-        f"{tuple(fb.gather_idx.shape)}")
+        f"{fb.n_facets} electrode facets, facet ELL dense "
+        f"{tuple(fb.gather_idx.shape)}, compact "
+        f"{tuple(fb.scatter_idx.shape)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = l2_flush()
     cell_idx = torch.as_tensor(build_ell_index(model.batch.dofs_np, n_dofs),
                                device="cuda")
     shapes = [("facet", fb.gather_idx, fb.dofs.numel(), 3),
@@ -246,7 +278,18 @@ def main() -> int:
             flat = torch.randn((n_flat, C), generator=gen, device="cuda",
                                dtype=dtype)
             cases.append(k1_case(f"{name} C={C} {str(dtype)[6:]}", idx,
-                                 flat, ell_scatter, ell_scatter_ref))
+                                 flat, ell_scatter, ell_scatter_ref, flush))
+    # the compact form at the facet shape, as the main path calls it
+    compact = []
+    for C in (3, 9):
+        for dtype in (torch.float32, torch.float64):
+            flat = torch.randn((fb.dofs.numel(), C), generator=gen,
+                               device="cuda", dtype=dtype)
+            compact.append(k1_compact_case(
+                f"facet compact C={C} {str(dtype)[6:]}", fb.scatter_rows,
+                fb.scatter_idx, fb.gather_idx, fb.dofs.reshape(-1).long(),
+                flat, n_dofs, k1, gen, flush))
+    del flush
 
     phase("3 main path")
     state = load_checkpoint(CKPT, device="cuda")
@@ -260,7 +303,9 @@ def main() -> int:
     check(max(rel) <= REF_RTOL, f"residual norms off the JAX reference by "
                                 f"{max(rel):.3e} > {REF_RTOL}")
     with mock.patch("fedm_tpu_torch.fem.assembly.ell_scatter",
-                    ell_scatter_ref):
+                    ell_scatter_ref), \
+            mock.patch("fedm_tpu_torch.fem.assembly.ell_scatter_add_",
+                       ell_scatter_add_ref):
         F_plain = model.system.residual(state.u, state.u, state.u_old,
                                         params, torch.float64)
     k1_rel = [float(torch.linalg.vector_norm(F[:, k] - F_plain[:, k])
@@ -277,7 +322,7 @@ def main() -> int:
         f"{state.t:.6e}, dt = {state.dt:.3e}")
     t_start, acc0, rej0 = state.t, state.n_accepted, state.n_rejected
     torch.cuda.reset_peak_memory_stats()
-    ell_scatter.launches = 0
+    ell_scatter.launches = ell_scatter_add_.launches = 0
     step_s = []
     for _ in range(N_TIMED_ADVANCES):
         t = time.perf_counter()
@@ -287,7 +332,8 @@ def main() -> int:
         log(f"advance {step_s[-1]:.2f} s, t = {state.t:.6e}, dt = "
             f"{state.dt:.3e}, accepted {state.n_accepted}, rejected "
             f"{state.n_rejected}")
-    launches = ell_scatter.launches
+    launches = {"ell_scatter_add_": ell_scatter_add_.launches,
+                "ell_scatter": ell_scatter.launches}
     peak = torch.cuda.max_memory_allocated()
     accepted = state.n_accepted - acc0
     attempts = accepted + state.n_rejected - rej0
@@ -296,23 +342,28 @@ def main() -> int:
           "non-finite state")
     check(state.t > t_start and accepted == N_TIMED_ADVANCES,
           "time or accepted count did not grow")
-    check(launches > 0, "the main path never launched K1")
+    check(launches["ell_scatter_add_"] > 0,
+          "the main path never launched K1's compact form")
+    check(launches["ell_scatter"] == 0,
+          "the main path launched K1's dense form")
     log(f"median {statistics.median(step_s):.3f} s/advance over "
         f"{N_TIMED_ADVANCES} (smoke number), accepted/attempted "
         f"{accepted}/{attempts}, K1 launches {launches}, peak memory "
         f"{peak / 2**30:.2f} GiB")
     signal.alarm(0)
 
-    main_case = cases[0]  # facet C=3 float32: the main path's usual launch
+    main_case = compact[0]  # facet C=3 float32: the main path's usual launch
     kernels = [{
         "name": "ell_scatter", "route": "cuda",
         "source": "fedm_tpu_torch/csrc/ell_scatter.cu",
         "replaces": "fedm_tpu/ops/pallas_scatter.py:34",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "launches": sum(launches.values()), "launches_by_form": launches,
+        "max_abs_err": max(c["max_abs_err"] for c in cases + compact),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
-        "library_ms": main_case["library_ms"], "cases": cases}]
+        "library_ms": main_case["library_ms"],
+        "floor_ms": main_case["floor_ms"],
+        "replaced_path_ms": main_case["replaced_path_ms"], "cases": cases + compact}]
     print(json.dumps({
         "kernels": kernels,
         "main_path": {"unknowns": n_dofs * model.n_eq,

@@ -9,7 +9,9 @@ Two scatter layouts serve the two batch kinds of the streamer:
   contiguous slices of the [ny+1, nx+1] vertex grid and scatter six
   slice-adds — no index chasing at all;
 - ELL: per destination dof, the static list of flat contribution rows,
-  summed by the ELL gather-sum kernel (`ops.ell_scatter`).
+  summed by the ELL gather-sum kernel (`ops.ell_scatter`). `scatter_add`,
+  the residual's accumulation, uses the table compacted to the dofs that
+  receive a contribution and adds into the caller's tensor in one launch.
 
 Axisymmetric weighting (`2*pi*r`) is folded into the per-quadrature-point
 `scale` at setup. Host geometry is computed in float64 numpy exactly as the
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from ..constants import pi
-from ..ops.ell_scatter import ell_scatter
+from ..ops.ell_scatter import ell_scatter, ell_scatter_add_
 from .elements import cell_quadrature, facet_quadrature, tabulate
 from .space import FunctionSpace
 
@@ -59,11 +61,24 @@ def build_ell_index(dofs: np.ndarray, n_dofs: int) -> np.ndarray:
     return idx.astype(np.int32)
 
 
+def build_ell_index_compact(dofs: np.ndarray, n_dofs: int):
+    """The ELL table restricted to its live rows: (rows [n_live], idx
+    [n_live, max_val]), both int32. `rows` lists, ascending, the dofs that
+    receive at least one contribution; row r of `idx` is row `rows[r]` of
+    `build_ell_index(dofs, n_dofs)`, same order and sentinel."""
+    flat = np.asarray(dofs).reshape(-1)
+    rows = np.unique(flat)
+    return (rows.astype(np.int32),
+            build_ell_index(flat, n_dofs)[rows])
+
+
 class _Batch:
     """Shared scatter / dtype handling of cell and facet batches."""
 
     _FLOAT_FIELDS: tuple = ()
     gather_idx = None  # ELL table [n_dofs, max_val] int32 on the device
+    scatter_rows = None  # live dofs [n_live] int32 (None: every dof)
+    scatter_idx = None  # ELL table of the live dofs [n_live, max_val]
     _structured = None  # (nx, ny) when slice/pad assembly is active
 
     def astype(self, dtype) -> "_Batch":
@@ -84,9 +99,17 @@ class _Batch:
         return views[dtype]
 
     def build_scatter_meta(self) -> None:
-        """Switch `scatter` to the ELL gather-sum layout."""
+        """Switch `scatter` and `scatter_add` to the ELL gather-sum layout:
+        the table over every dof and the one compacted to the live dofs
+        (the same tensor where every dof is live)."""
         self.gather_idx = torch.as_tensor(
             build_ell_index(self.dofs_np, self.n_dofs), device=self.device)
+        rows, idx = build_ell_index_compact(self.dofs_np, self.n_dofs)
+        if rows.size == self.n_dofs:
+            self.scatter_rows, self.scatter_idx = None, self.gather_idx
+        else:
+            self.scatter_rows = torch.as_tensor(rows, device=self.device)
+            self.scatter_idx = torch.as_tensor(idx, device=self.device)
 
     def scatter(self, contrib: torch.Tensor) -> torch.Tensor:
         """[n_elems, n_local, ...] -> global [n_dofs, ...]."""
@@ -104,6 +127,20 @@ class _Batch:
             self.build_scatter_meta()
         flat = contrib.reshape((-1,) + trailing).contiguous()
         return ell_scatter(flat, self.gather_idx)
+
+    def scatter_add(self, out: torch.Tensor,
+                    contrib: torch.Tensor) -> torch.Tensor:
+        """Add scatter(contrib) into `out` in place, summed in the order of
+        out + scatter(contrib), and return `out`. On the ELL layout this is
+        one launch over the live dofs."""
+        if self._structured is not None:
+            out += self.scatter(contrib)
+            return out
+        if self.gather_idx is None:
+            self.build_scatter_meta()
+        flat = contrib.reshape((-1,) + tuple(contrib.shape[2:])).contiguous()
+        return ell_scatter_add_(out, flat, self.scatter_idx,
+                                self.scatter_rows)
 
     def integrate(self, s: torch.Tensor) -> torch.Tensor:
         """Integral of s [n_elems, n_q, ...] over the batch."""

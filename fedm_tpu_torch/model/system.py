@@ -12,8 +12,10 @@ formed in the float64 state before the cast to the compute dtype, so a
 float32 compute path keeps every digit of the O(1e-4) increments of O(40)
 log-densities. Kernels rebuild the absolute state as ctx['u_old'] + delta_e.
 
-Assembly is scatter . kernel . gather, and gather and scatter are linear,
-so the Jacobian action is J v = scatter(jvp(kernel)(gather(v))): forward-mode
+Assembly is scatter . kernel . gather, each batch's scatter adding into one
+fresh zero tensor (`scatter_add`, in place on the ELL layout). Gather and
+scatter are linear, so the Jacobian action is
+J v = scatter(jvp(kernel)(gather(v))): forward-mode
 AD runs only through the plain-torch element kernels, never through the
 scatter (whose ELL branch is an opaque CUDA kernel). The node-block Jacobi
 preconditioner pushes the n_local*n_eq local tangent basis vectors through
@@ -76,7 +78,8 @@ class StepOperators:
         delta = delta.to(self.dtype)
         out = self._zeros(self.n_eq)
         for (batch, kernel), ctx in zip(self.batches, self.ctxs):
-            out = out + batch.scatter(kernel(batch, batch.gather(delta), ctx))
+            out = batch.scatter_add(
+                out, kernel(batch, batch.gather(delta), ctx))
         return torch.where(self.mask, delta + self.bc_shift, out)
 
     def jacobian_action(self, delta: torch.Tensor) -> Callable:
@@ -88,7 +91,7 @@ class StepOperators:
             out = self._zeros(self.n_eq)
             for batch, ctx, u_e, kernel in lin:
                 t = _jvp(kernel, batch, ctx, u_e, batch.gather(v))
-                out = out + batch.scatter(t)
+                out = batch.scatter_add(out, t)
             return torch.where(self.mask, v, out)
 
         return apply
@@ -110,7 +113,7 @@ class StepOperators:
                     tan[:, a, j] = 1.0
                     diag[:, a, :, j] = _jvp(kernel, batch, ctx, u_e,
                                             tan)[:, a, :]
-            blocks = blocks + batch.scatter(diag)
+            blocks = batch.scatter_add(blocks, diag)
         eye = torch.eye(ne, dtype=self.dtype, device=blocks.device)
         return torch.where(self.mask[:, :, None], eye, blocks)
 

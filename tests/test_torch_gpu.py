@@ -1,6 +1,6 @@
-"""The port on the card: the ELL gather-sum kernel against its plain
-version, and the streamer main path on CUDA at a small size against the
-same path on the CPU.
+"""The port on the card: both forms of the ELL gather-sum kernel (dense and
+compact) against their plain versions, and the streamer main path on CUDA
+at a small size against the same path on the CPU.
 
 These tests are marked `gpu` and skip without a CUDA device. They import
 only the port, so they also run where JAX is not installed; on a GPU host
@@ -16,7 +16,9 @@ import torch
 from fedm_tpu_torch.convert import state_from_arrays
 from fedm_tpu_torch.model.system import StepParams
 from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel
-from fedm_tpu_torch.ops.ell_scatter import ell_scatter, ell_scatter_ref
+from fedm_tpu_torch.ops.ell_scatter import (ell_scatter, ell_scatter_add_,
+                                            ell_scatter_add_ref,
+                                            ell_scatter_ref)
 from fedm_tpu_torch.solvers.newton import NewtonConfig
 
 pytestmark = pytest.mark.gpu
@@ -72,6 +74,80 @@ def test_ell_scatter_raises_on_what_it_does_not_take(cuda):
         ell_scatter(f, i.cpu())
 
 
+def _compact_case(max_val, C, n_live, seed=0):
+    """A compact table: `n_live` distinct ascending destination rows of 100
+    (None: every row), each with `max_val` random rows of a 301-row flat,
+    about a fifth of them the padding sentinel."""
+    rng = np.random.default_rng(seed)
+    n_dofs, n_flat = 100, 301
+    rows = None if n_live is None else np.sort(
+        rng.permutation(n_dofs)[:n_live])
+    n_rows = n_dofs if rows is None else n_live
+    idx = rng.integers(0, n_flat, (n_rows, max_val))
+    idx[rng.random((n_rows, max_val)) < 0.2] = n_flat
+    flat = rng.standard_normal((n_flat, C))
+    out = rng.standard_normal((n_dofs, C))
+    return rows, idx, flat, out
+
+
+@pytest.mark.parametrize("n_live", [37, 0, None], ids=["rows", "none-live",
+                                                        "rows-None"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [1, 3, 9])
+@pytest.mark.parametrize("max_val", [1, 2, 3, 6, 8, 11])
+def test_ell_scatter_add_kernel_matches_plain(cuda, max_val, C, dtype,
+                                              n_live):
+    rows, idx, flat, out = _compact_case(max_val, C, n_live)
+    r = None if rows is None else torch.as_tensor(rows, dtype=torch.int32,
+                                                  device=cuda)
+    i = torch.as_tensor(idx, dtype=torch.int32, device=cuda)
+    f = torch.as_tensor(flat, dtype=dtype, device=cuda)
+    o = torch.as_tensor(out, dtype=dtype, device=cuda)
+    o0 = o.clone()
+    before, dense_before = ell_scatter_add_.launches, ell_scatter.launches
+    got = ell_scatter_add_(o, f, i, r)
+    torch.cuda.synchronize()
+    assert got is o
+    assert ell_scatter_add_.launches == before + (n_live != 0)
+    assert ell_scatter.launches == dense_before
+    ref = ell_scatter_add_ref(o0.clone(), f, i, r)
+    rtol = 1e-13 if dtype == torch.float64 else 1e-6
+    np.testing.assert_allclose(o.cpu().numpy(), ref.cpu().numpy(), rtol=rtol,
+                               atol=rtol * np.abs(ref.cpu().numpy()).max())
+    # the rows the table leaves out keep their values exactly
+    if rows is not None:
+        dead = np.setdiff1d(np.arange(100), rows)
+        assert torch.equal(o[dead], o0[dead])
+
+
+def test_ell_scatter_add_raises_on_what_it_does_not_take(cuda):
+    rows, idx, flat, out = _compact_case(2, 3, 37)
+    r = torch.as_tensor(rows, dtype=torch.int32, device=cuda)
+    i = torch.as_tensor(idx, dtype=torch.int32, device=cuda)
+    f = torch.as_tensor(flat, device=cuda)
+    o = torch.as_tensor(out, device=cuda)
+    with pytest.raises(TypeError):  # int64 idx
+        ell_scatter_add_(o, f, i.long(), r)
+    with pytest.raises(TypeError):  # int64 rows
+        ell_scatter_add_(o, f, i, r.long())
+    with pytest.raises(ValueError):  # non-contiguous out
+        ell_scatter_add_(o.t().contiguous().t(), f, i, r)
+    with pytest.raises(ValueError):  # idx stored as its transpose
+        ell_scatter_add_(o, f, i.t().contiguous().t(), r)
+    with pytest.raises(TypeError):  # mixed dtypes
+        ell_scatter_add_(o.float(), f, i, r)
+    with pytest.raises(TypeError):  # a dtype the kernel does not take
+        ell_scatter_add_(o.half(), f.half(), i, r)
+    with pytest.raises(ValueError):  # mixed devices
+        ell_scatter_add_(o, f.cpu(), i, r)
+    with pytest.raises(ValueError):
+        ell_scatter_add_(o.cpu(), f, i, r)
+    with pytest.raises(ValueError):
+        ell_scatter_add_(o, f, i, r.cpu())
+    with pytest.raises(ValueError):  # out that autograd tracks
+        ell_scatter_add_(o.clone().requires_grad_(), f, i, r)
+
+
 def _small_model(device):
     nc = NewtonConfig(rtol=1e-3, max_iter=20, linear_tol=1e-4,
                       linear_maxiter=200, accept_reduction=3e-2,
@@ -114,10 +190,12 @@ def test_main_path_small_on_cuda(cuda):
         assert np.abs(Fg[:, k] - Fc[:, k]).max() <= 1e-12 * np.abs(
             Fc[:, k]).max()
 
-    before = ell_scatter.launches
+    before, dense_before = ell_scatter_add_.launches, ell_scatter.launches
     sg = gpu.make_driver().advance(sg)
     sc = cpu.make_driver().advance(sc)
-    assert ell_scatter.launches > before
+    # the residual accumulates the facet terms with the compact form only
+    assert ell_scatter_add_.launches > before
+    assert ell_scatter.launches == dense_before
     assert sg.n_accepted == sc.n_accepted == 1
     assert sg.t == sc.t == 1e-12
     assert all(bool(torch.isfinite(x).all()) for x in (sg.u, sg.u_old))

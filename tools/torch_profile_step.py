@@ -2,7 +2,8 @@
 GPU: the bench configuration (`bench.py:_stiff_bench`) restarted from the
 bench checkpoint, one warm-up advance, then one advance under
 `torch.profiler`. Prints the advance's wall time, the device-busy time
-(the union of kernel intervals), the kernel count, and the kernels and
+(the union of kernel intervals), the kernel count, K1's launches (both
+forms) and its share of the advance's device time, and the kernels and
 operators that take the most device time.
 
     python tools/torch_profile_step.py [--top 25]
@@ -21,7 +22,8 @@ sys.path.insert(0, str(ROOT))
 
 from fedm_tpu_torch.io import load_checkpoint  # noqa: E402
 from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel  # noqa: E402
-from fedm_tpu_torch.ops.ell_scatter import ell_scatter  # noqa: E402
+from fedm_tpu_torch.ops.ell_scatter import (ell_scatter,  # noqa: E402
+                                            ell_scatter_add_)
 from fedm_tpu_torch.solvers.newton import NewtonConfig  # noqa: E402
 
 
@@ -60,7 +62,7 @@ def main():
     driver = model.make_driver(verbose=True)
     state = driver.advance(state)
     torch.cuda.synchronize()
-    ell_scatter.launches = 0
+    ell_scatter.launches = ell_scatter_add_.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -70,12 +72,17 @@ def main():
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = busy_us(kernels) * 1e-6
+    k1 = [e for e in kernels if "ell_scatter" in e.name]
+    k1_s = sum(e.time_range.end - e.time_range.start for e in k1) * 1e-6
     print(f"device: {torch.cuda.get_device_name(0)}")
     print(f"advance wall {wall:.3f} s, device busy {busy:.3f} s "
           f"({busy / wall:.1%}), idle share {1 - busy / wall:.1%}, "
-          f"{len(kernels)} device kernels, K1 launches "
-          f"{ell_scatter.launches}, accepted {state.n_accepted}, rejected "
-          f"{state.n_rejected}")
+          f"{len(kernels)} device kernels, accepted {state.n_accepted}, "
+          f"rejected {state.n_rejected}")
+    print(f"K1 launches: compact {ell_scatter_add_.launches}, dense "
+          f"{ell_scatter.launches}; {len(k1)} K1 kernels in the trace, "
+          f"{k1_s * 1e6:.1f} us of device time, {k1_s / busy:.3e} of the "
+          f"advance's")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                      row_limit=args.top))
 
