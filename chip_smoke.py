@@ -19,7 +19,15 @@ Phases (each reports its elapsed seconds on stderr):
      bench_assets/bagheri_dz1e-5_ckpt.npz (484,155 unknowns), its float64
      residual held to the JAX package's norms, K1 against the plain scatter
      inside that residual, then 1 warm-up + 3 timed adaptive advances with
-     both of K1's launch counters reset just before and read just after.
+     both of K1's launch counters reset just before and read just after;
+  4. the fresh window: the Bagheri streamer at the `bagheri14` protocol of
+     `python -m fedm_tpu_torch.bagheri_run` (30,305 dofs, the moving window
+     at the seed) started from t = 0: the initial Poisson solve, the
+     initial state and first residual held to the JAX package's numbers
+     (tools/port_reference_window.py), the window moved and the remapped
+     state and its residual held to them too, K1 inside the moved
+     residual against its plain version (exactly), then 10 adaptive
+     advances with K1's counters reset just before and read just after.
 The script stops with a non-zero exit if any check fails or the whole run
 passes its time budget. Its last stdout line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -37,8 +45,9 @@ from unittest import mock
 
 import torch
 
+from fedm_tpu_torch import devtime
 from fedm_tpu_torch.devtime import (HBM_BYTES_PER_S, device_ms, eager_ms,
-                                    l2_flush)
+                                    event_ms, l2_flush)
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "bench_assets" / "bagheri_dz1e-5_ckpt.npz"
@@ -50,6 +59,40 @@ N_TIMED_ADVANCES = 3
 REF_RESIDUAL_NORMS = (4.148295764358092e+17, 3.539466381528627e+17,
                       0.0006266210202779736)
 REF_RTOL = 1e-10
+# The fresh window's reference numbers, computed with the JAX package on the
+# CPU by:  JAX_PLATFORMS=cpu python tools/port_reference_window.py
+# (per-column 2-norms of the state u = [ln n_ion, ln n_e, phi], and
+# per-equation 2-norms of the float64 residual of the first attempted step)
+REF_WINDOW = {
+    "n_dofs": 30305,
+    "corridor": (0.0091, 0.0106, 1e-05),
+    "initial_state_norms": (5804.406627118043, 5210.941350488422,
+                            2898662.183374749),
+    "initial_residual_norms": (149990795867359.16, 150105563506790.22,
+                               0.021438900084583566),
+    "moved_to": (0.009000000000000001, 0.0105, 1e-05),
+    "moved_state_norms": (5799.180214326058, 5210.941350488422,
+                          2875121.699916858),
+    "moved_residual_norms": (148300751466995.06, 148415166893003.0,
+                             0.11401860614749627)}
+# Relative tolerances per column / equation, each a few times the gap the
+# port showed on the H100 (and within that of its gap on the CPU, by the
+# same script with --port). The log-densities are the same closed form
+# (1e-12: the norm's summation order). The potential comes from a
+# float32-preconditioned CG stopped at relres 1e-6, so it agrees only to the
+# rounding of that solve (H100 9.6e-11, CPU 5.2e-11). The electron row reads
+# exp(-2.73e7/E) and so magnifies the field's difference ~20x (H100 5.0e-9,
+# CPU 4.8e-9); the ion row much less (H100 1.0e-11, CPU 2.2e-11). The
+# potential row at the initial state is the CG's final residual itself,
+# whose size below its stopping target is set by rounding (H100 2.9e-4, CPU
+# 7.4e-4); after the move it is mostly the interpolation's (H100 9.9e-6,
+# CPU 2.5e-5). The same residual evaluated in float32 (no float64 defect)
+# is off by 1.2e-6 or more in every row (CPU); the phase checks that it
+# fails these tolerances, so they can tell the defect's precision apart.
+WINDOW_STATE_RTOL = (1e-12, 1e-12, 5e-10)
+WINDOW_INITIAL_RESIDUAL_RTOL = (5e-11, 2e-8, 2e-3)
+WINDOW_MOVED_RESIDUAL_RTOL = (5e-11, 2e-8, 5e-5)
+N_WINDOW_ADVANCES = 10
 T0 = time.perf_counter()
 _phase = "start"
 
@@ -187,6 +230,9 @@ def k1_compact_case(name, rows, idx, dense_idx, dofs, flat, n_dofs, k1,
         timings[key + "ms"] = device_ms(fn, calls, flush)
         timings[key + "warm_ms"] = device_ms(fn, calls)
         timings[key + "eager_ms"] = eager_ms(lambda: fn(out0))
+    # the kernel's cold time by CUDA events, the timing device_ms falls back
+    # to where the profiler drops its traces, beside the profiler's
+    timings["event_ms"] = event_ms(fns[""], calls, flush)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     case = {"case": name, "form": "compact", "n_rows": n_rows,
             "n_dofs": n_dofs, "max_val": max_val, "n_flat": flat.shape[0],
@@ -205,8 +251,181 @@ def k1_compact_case(name, rows, idx, dense_idx, dofs, flat, n_dofs, k1,
         f"warm device us: kernel {us['warm_ms']:.2f}, floor "
         f"{us['floor_warm_ms']:.2f}, index_add_ {us['library_warm_ms']:.2f}, "
         f"out + dense {us['replaced_path_warm_ms']:.2f}; eager us: kernel "
-        f"{us['eager_ms']:.2f}, index_add_ {us['library_eager_ms']:.2f}")
+        f"{us['eager_ms']:.2f}, index_add_ {us['library_eager_ms']:.2f}; "
+        f"kernel cold by CUDA events {us['event_ms']:.2f}")
     return case
+
+
+def held_to(name, got, ref, rtols) -> list:
+    """Relative gaps of `got` to `ref`, each checked against its rtol."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+    log(f"{name}: {got}, rel. to JAX {rel}")
+    for k, (r, tol) in enumerate(zip(rel, rtols)):
+        check(r <= tol, f"{name}[{k}] off the JAX reference by {r:.3e} > "
+                        f"{tol:.1e}")
+    return rel
+
+
+def refused_by(name, got, ref, rtols) -> list:
+    """Relative gaps of a lower-precision `got` to `ref`, each checked to
+    exceed its rtol: the control that the tolerance can fail."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+    log(f"{name} (control): rel. to JAX {rel}")
+    for k, (r, tol) in enumerate(zip(rel, rtols)):
+        check(not r <= tol, f"{name}[{k}] is within {tol:.1e} of the JAX "
+                            f"reference ({r:.3e}): the tolerance cannot "
+                            f"tell it from the float64 defect")
+    return rel
+
+
+def counting(counts: dict, name: str, fn):
+    """`fn`, adding to counts[name] its Krylov iterations (the third item
+    it returns) or, for a Newton iteration, one per call."""
+    def run(*args, **kw):
+        out = fn(*args, **kw)
+        counts[name] = counts.get(name, 0) + (
+            1 if name == "newton_iteration" else int(out[2]))
+        return out
+
+    return run
+
+
+def fresh_window(k1, card) -> dict:
+    """Phase 4: the bagheri14 protocol from t = 0 on its moving window."""
+    import tempfile
+
+    import numpy as np
+
+    from fedm_tpu_torch.bagheri_run import (build_driver, build_models,
+                                            parse_args, window_corr)
+    from fedm_tpu_torch.model.system import StepParams
+    from fedm_tpu_torch.solvers import newton
+
+    def norms(x):
+        return [float(torch.linalg.vector_norm(x[:, k]))
+                for k in range(x.shape[1])]
+
+    def first_residual(model, s, dtype=torch.float64):
+        p = StepParams(s.t + s.dt, s.dt, s.dt_old)
+        return model.system.residual(s.u, s.u, s.u_old, p, dtype)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        args = parse_args(["--preset", "bagheri14", "--no-direct-rescue",
+                           "--out", tmp])
+        span, dz = args.window_span, args.window_dz
+        corridor = window_corr(1e-2, span, dz)
+        check(np.allclose(corridor, REF_WINDOW["corridor"], rtol=1e-15,
+                          atol=0), "the window corridor differs")
+        t = time.perf_counter()
+        model, fallback = build_models(args, corridor)
+        torch.cuda.synchronize()
+        fb = model.system.facet_kernels[0][0]
+        n_dofs = model.space.n_dofs
+        out["build_s"] = time.perf_counter() - t
+        out["n_dofs"] = n_dofs
+        out["facet_compact_shape"] = list(fb.scatter_idx.shape)
+        log(f"window model: {n_dofs} dofs ({3 * n_dofs} unknowns), "
+            f"{model.mesh.n_cells} cells, facet compact table "
+            f"{tuple(fb.scatter_idx.shape)}, built in {out['build_s']:.2f} s")
+        check(n_dofs == REF_WINDOW["n_dofs"], f"{n_dofs} dofs, not "
+                                              f"{REF_WINDOW['n_dofs']}")
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state = model.initial_state()
+        torch.cuda.synchronize()
+        out["poisson_s"] = time.perf_counter() - t
+        out["poisson_relres"], out["poisson_iters"] = model.initial_poisson
+        log(f"initial state in {out['poisson_s']:.3f} s: Poisson CG "
+            f"{out['poisson_iters']} iterations, relres "
+            f"{out['poisson_relres']:.3e}")
+        out["initial_state_rel"] = held_to(
+            "initial state norms", norms(state.u),
+            REF_WINDOW["initial_state_norms"], WINDOW_STATE_RTOL)
+        out["initial_residual_rel"] = held_to(
+            "initial f64 residual norms", norms(first_residual(model, state)),
+            REF_WINDOW["initial_residual_norms"],
+            WINDOW_INITIAL_RESIDUAL_RTOL)
+        out["initial_residual_f32_rel"] = refused_by(
+            "initial f32 residual norms",
+            norms(first_residual(model, state, torch.float32).double()),
+            REF_WINDOW["initial_residual_norms"],
+            WINDOW_INITIAL_RESIDUAL_RTOL)
+
+        moved_to = window_corr(9.9e-3, span, dz)
+        check(np.allclose(moved_to, REF_WINDOW["moved_to"], rtol=1e-15,
+                          atol=0), "the moved corridor differs")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state = model.move_window(moved_to, state)
+        torch.cuda.synchronize()
+        out["move_window_s"] = time.perf_counter() - t
+        log(f"move_window to {moved_to} in {out['move_window_s']:.3f} s")
+        out["moved_state_rel"] = held_to(
+            "moved state norms", norms(state.u),
+            REF_WINDOW["moved_state_norms"], WINDOW_STATE_RTOL)
+        F = first_residual(model, state)
+        out["moved_residual_rel"] = held_to(
+            "moved f64 residual norms", norms(F),
+            REF_WINDOW["moved_residual_norms"], WINDOW_MOVED_RESIDUAL_RTOL)
+        out["moved_residual_f32_rel"] = refused_by(
+            "moved f32 residual norms",
+            norms(first_residual(model, state, torch.float32).double()),
+            REF_WINDOW["moved_residual_norms"], WINDOW_MOVED_RESIDUAL_RTOL)
+        with mock.patch("fedm_tpu_torch.fem.assembly.ell_scatter_add_",
+                        k1.ell_scatter_add_ref):
+            F_plain = first_residual(model, state)
+        check(torch.equal(F, F_plain), "K1 on the moved facets differs from "
+                                       "its plain version")
+        log("moved residual with K1 equals the plain version's exactly")
+
+        driver = build_driver(args, model, fallback)
+        acc0, rej0 = state.n_accepted, state.n_rejected
+        # Newton iterations (a rescued one counts twice) and Krylov
+        # iterations per advance, counted around the solver's calls
+        counts = {}
+        patches = {name: counting(counts, name, getattr(newton, name))
+                   for name in ("newton_iteration", "bicgstab", "gmres")}
+        k1.ell_scatter.launches = k1.ell_scatter_add_.launches = 0
+        step_s, per_advance = [], []
+        with mock.patch.multiple(newton, **patches):
+            for _ in range(N_WINDOW_ADVANCES):
+                before = dict(counts)
+                t = time.perf_counter()
+                state = driver.advance(state)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+                per_advance.append({k: v - before.get(k, 0)
+                                    for k, v in counts.items()})
+                log(f"window advance {step_s[-1]:.2f} s, t = {state.t:.6e}"
+                    f", dt = {state.dt:.3e}, accepted {state.n_accepted}, "
+                    f"rejected {state.n_rejected}, iterations "
+                    f"{per_advance[-1]}")
+        launches = {"ell_scatter_add_": k1.ell_scatter_add_.launches,
+                    "ell_scatter": k1.ell_scatter.launches}
+    accepted = state.n_accepted - acc0
+    out.update({"advance_s": step_s, "iterations_per_advance": per_advance,
+                "median_advance_s": statistics.median(step_s),
+                "accepted": accepted,
+                "rejected": state.n_rejected - rej0,
+                "stall_accepted": driver.n_stall_accepted,
+                "launches": launches,
+                "k1_launches_per_advance":
+                    launches["ell_scatter_add_"] / N_WINDOW_ADVANCES,
+                "t": state.t, "card": card})
+    check(all(bool(torch.isfinite(x).all())
+              for x in (state.u, state.u_old, state.u_old1)),
+          "non-finite window state")
+    check(accepted >= 1, "no window advance was accepted")
+    check(launches["ell_scatter_add_"] > 0,
+          "the window path never launched K1's compact form")
+    check(launches["ell_scatter"] == 0,
+          "the window path launched K1's dense form")
+    log(f"window: accepted {accepted}, rejected {out['rejected']}, median "
+        f"{out['median_advance_s']:.3f} s/advance, K1 launches {launches} "
+        f"({out['k1_launches_per_advance']:.1f} per advance); {card}")
+    return out
 
 
 def main() -> int:
@@ -350,6 +569,12 @@ def main() -> int:
         f"{N_TIMED_ADVANCES} (smoke number), accepted/attempted "
         f"{accepted}/{attempts}, K1 launches {launches}, peak memory "
         f"{peak / 2**30:.2f} GiB")
+
+    unknowns = n_dofs * model.n_eq
+
+    phase("4 fresh window")
+    del model, driver, state
+    window = fresh_window(k1, card)
     signal.alarm(0)
 
     main_case = compact[0]  # facet C=3 float32: the main path's usual launch
@@ -357,21 +582,28 @@ def main() -> int:
         "name": "ell_scatter", "route": "cuda",
         "source": "fedm_tpu_torch/csrc/ell_scatter.cu",
         "replaces": "fedm_tpu/ops/pallas_scatter.py:34",
-        "launches": sum(launches.values()), "launches_by_form": launches,
+        "launches": sum(launches.values()) + sum(window["launches"].values()),
+        "launches_by_path": {"restart": launches,
+                             "fresh_window": window["launches"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases + compact),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
         "library_ms": main_case["library_ms"],
         "floor_ms": main_case["floor_ms"],
-        "replaced_path_ms": main_case["replaced_path_ms"], "cases": cases + compact}]
+        "replaced_path_ms": main_case["replaced_path_ms"],
+        # device times taken by CUDA events where the profiler dropped its
+        # traces (each then ~4 us high, see devtime.event_ms); 0 in a
+        # healthy run
+        "event_timed": devtime.event_fallbacks, "cases": cases + compact}]
     print(json.dumps({
         "kernels": kernels,
-        "main_path": {"unknowns": n_dofs * model.n_eq,
+        "main_path": {"unknowns": unknowns,
                       "advance_s": step_s,
                       "median_advance_s": statistics.median(step_s),
                       "accepted": accepted, "attempts": attempts,
                       "peak_bytes": peak, "residual_norms": norms,
-                      "residual_rel_to_jax": rel}}))
+                      "residual_rel_to_jax": rel},
+        "fresh_window": window}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -1,7 +1,8 @@
 """Device timing on the GPU, shared by chip_smoke.py and the measurement
-scripts under tools/: the device time of a call from a profiler trace, cold
-(L2 flushed before every call) or warm, and the host-issue rate of eager
-calls from CUDA events.
+scripts under tools/: the device time of a call from a profiler trace (or,
+where the profiler drops its traces, from CUDA events around each call
+queued behind a spin kernel), cold (L2 flushed before every call) or warm,
+and the host-issue rate of eager calls from CUDA events.
 
     flush = l2_flush()
     cold = device_ms(fn, [(x,)] * 20, flush)
@@ -17,6 +18,16 @@ from torch.profiler import ProfilerActivity, profile
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 L2_BYTES = 50 * 2**20      # H100 SXM L2 cache
+SPIN_CYCLES = 10**8        # ~50 ms at the H100's 1.98 GHz boost clock
+
+
+PROFILE_ATTEMPTS = 5
+# device_ms calls that fell back to event_ms in this process
+event_fallbacks = 0
+
+
+class NoDeviceEvents(RuntimeError):
+    """The profiler recorded no device event in any of its traces."""
 
 
 def l2_flush(device="cuda"):
@@ -47,9 +58,10 @@ def eager_ms(fn, reps: int = 50, warmup: int = 3) -> float:
 
 def _traced(run) -> list:
     """The device events of a profiler trace of run(). A trace that holds
-    none (the profiler on the card has dropped a whole trace) is taken
-    again, at most twice."""
-    for attempt in range(3):
+    none (the profiler on the card has dropped a whole trace, up to three
+    times in a row) is taken again, up to PROFILE_ATTEMPTS traces in
+    all."""
+    for attempt in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -62,8 +74,41 @@ def _traced(run) -> list:
         print(f"devtime: the profiler trace held no device event "
               f"({len(prof.events())} host events, attempt {attempt + 1}); "
               f"tracing again", file=sys.stderr, flush=True)
-    raise RuntimeError("the profiler recorded no device event in three "
-                       "traces")
+    raise NoDeviceEvents(f"the profiler recorded no device event in "
+                         f"{PROFILE_ATTEMPTS} traces")
+
+
+def event_ms(fn, calls, flush=None) -> float:
+    """Device time per call from a CUDA event pair around each call
+    fn(*args), one for each entry of `calls` (with `flush`, flush() runs
+    before each, outside its pair). A spin kernel runs first, long enough
+    that the host has queued every call before the device reaches the
+    first one, so no pair holds a wait for the host; each pair still holds
+    the gaps between the call's own kernels and the device's cost of the
+    launch and the two records, ~4 us on an H100 (K1's compact calls:
+    6.0-6.1 us by events, 2.1-2.2 us by the profiler)."""
+    for args in calls:
+        fn(*args)
+    cycles = SPIN_CYCLES
+    for _ in range(4):
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in calls]
+        spun = torch.cuda.Event()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        spun.record()
+        for (start, end), args in zip(pairs, calls):
+            if flush is not None:
+                flush()
+            start.record()
+            fn(*args)
+            end.record()
+        queued_in_time = not spun.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return sum(a.elapsed_time(b) for a, b in pairs) / len(calls)
+        cycles *= 4
+    raise RuntimeError("the device overtook the host in every event pass")
 
 
 def device_ms(fn, calls, flush=None) -> float:
@@ -72,7 +117,20 @@ def device_ms(fn, calls, flush=None) -> float:
     run, from a profiler trace, with the idle gaps between launches left
     out. One untimed pass over `calls` comes first. With `flush`, flush()
     runs before every call and its kernels (named by a trace of flush
-    alone) are left out."""
+    alone) are left out. Where the profiler drops every trace, the time
+    comes from `event_ms` instead: a line on stderr says so, and
+    `event_fallbacks` counts it."""
+    global event_fallbacks
+    try:
+        return _profiled_ms(fn, calls, flush)
+    except NoDeviceEvents as e:
+        print(f"devtime: {e}; timing with CUDA events instead",
+              file=sys.stderr, flush=True)
+        event_fallbacks += 1
+        return event_ms(fn, calls, flush)
+
+
+def _profiled_ms(fn, calls, flush=None) -> float:
     for args in calls:
         fn(*args)
     skip, per_flush = set(), 0

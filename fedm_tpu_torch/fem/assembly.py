@@ -98,6 +98,33 @@ class _Batch:
             views[dtype] = view
         return views[dtype]
 
+    def set_geometry(self, new: "_Batch") -> None:
+        """Take the coordinate-derived tables of `new`, a batch of the same
+        kind built on the same topology with moved nodes. Shapes, types and
+        the scatter tables stay; the compact scatter table is a function of
+        the topology alone, and is checked to come out the same."""
+        if not np.array_equal(new.dofs_np, self.dofs_np):
+            raise ValueError("geometry update changed the batch's topology")
+        for f in self._GEOM_FIELDS:
+            old, arr = getattr(self, f), getattr(new, f)
+            if (arr.shape, arr.dtype, arr.device) != (old.shape, old.dtype,
+                                                      old.device):
+                raise ValueError(f"geometry update changed {f}: "
+                                 f"{tuple(old.shape)} {old.dtype} -> "
+                                 f"{tuple(arr.shape)} {arr.dtype}")
+        if self.scatter_idx is not None:
+            rows, idx = build_ell_index_compact(new.dofs_np, new.n_dofs)
+            held_rows = (np.arange(self.n_dofs) if self.scatter_rows is None
+                         else self.scatter_rows.cpu().numpy())
+            if not (np.array_equal(rows, held_rows) and np.array_equal(
+                    idx, self.scatter_idx.cpu().numpy())):
+                raise AssertionError("the compact scatter table changed in "
+                                     "a geometry update")
+        for f in self._GEOM_FIELDS:
+            setattr(self, f, getattr(new, f))
+        self.space = new.space
+        self.__dict__.pop("_views", None)  # casts of the old tables
+
     def build_scatter_meta(self) -> None:
         """Switch `scatter` and `scatter_add` to the ELL gather-sum layout:
         the table over every dof and the one compacted to the live dofs
@@ -154,10 +181,14 @@ class CellBatch(_Batch):
       N      [n_q, 3]              reference shape values
       grads  [n_cells, 1, 3, 2]    physical shape gradients (affine P1)
       scale  [n_cells, n_q]        w_q * |detJ| * (2*pi*r | 1)
+      h      [n_cells]             cell size (greatest vertex distance)
+      h_dir  [n_cells, 2]          bounding-box extents, for the
+                                   directional cell size of upwinding
       dofs   [n_cells, 3]
     """
 
-    _FLOAT_FIELDS = ("N", "grads", "scale")
+    _FLOAT_FIELDS = ("N", "grads", "scale", "h", "h_dir")
+    _GEOM_FIELDS = ("grads", "scale", "h", "h_dir")
 
     def __init__(self, space: FunctionSpace, quad_degree: int = 4,
                  axisymmetric: bool = False, dtype=None, *, device):
@@ -189,6 +220,8 @@ class CellBatch(_Batch):
         self.N = put(N)
         self.grads = put(grads)
         self.scale = put(scale)
+        self.h = put(mesh.cell_h())
+        self.h_dir = put(mesh.cell_extents())
         self.dofs_np = space.cell_dofs
         self.dofs = torch.as_tensor(space.cell_dofs, device=self.device)
 
@@ -268,6 +301,7 @@ class FacetBatch(_Batch):
     """
 
     _FLOAT_FIELDS = ("N", "grads", "scale", "normal")
+    _GEOM_FIELDS = _FLOAT_FIELDS
 
     def __init__(self, space: FunctionSpace, markers: list,
                  quad_degree: int = 4, axisymmetric: bool = False,

@@ -1,3 +1,3 @@
-from .checkpoint import load_checkpoint
+from .checkpoint import load_checkpoint, save_checkpoint
 
-__all__ = ["load_checkpoint"]
+__all__ = ["load_checkpoint", "save_checkpoint"]

@@ -129,6 +129,8 @@ class CoupledSystem:
         self.cell_kernel: Optional[Callable] = None
         self.facet_kernels: List[Tuple[FacetBatch, Callable]] = []
         self._ell = None  # (eq, solve) of the elliptic preconditioner
+        # absolute Newton target set by the driver (its floor_atol)
+        self.dyn_atol = 0.0
 
     @property
     def dtype(self):
@@ -150,6 +152,19 @@ class CoupledSystem:
         for batch, _ in self._batches():
             if not (isinstance(batch, CellBatch) and batch.try_structured()):
                 batch.build_scatter_meta()
+
+    def update_geometry(self, batches) -> None:
+        """Install the coordinate-derived tables of `batches` (the cell
+        batch, then the facet batches, in the order the system holds them)
+        built on the same topology with moved nodes; see
+        `_Batch.set_geometry`. A geometry-carrying preconditioner is
+        updated by its owner."""
+        held = list(self._batches())
+        if len(batches) != len(held):
+            raise ValueError(f"{len(batches)} batches for the system's "
+                             f"{len(held)}")
+        for (b, _), new in zip(held, batches):
+            b.set_geometry(new)
 
     def enable_elliptic_precond(self, eq: int, mg) -> None:
         """Replace the node-block answer on row `eq` by one V-cycle of `mg`
@@ -187,9 +202,20 @@ class CoupledSystem:
 
         return build
 
+    def guarded_block_count(self, u_old, u_old1, params: StepParams) -> int:
+        """Diagnostic: how many node blocks at the state u_old (delta = 0)
+        need the Jacobi fallback of `invert_blocks`. A handful is the
+        expected underflow case; a systematic count is an assembly defect
+        the fallback would otherwise hide."""
+        ops = self.operators(u_old, u_old1, params)
+        delta = torch.zeros_like(u_old, dtype=ops.dtype)
+        return invert_blocks(ops.jacobian_blocks(delta), with_count=True)[1]
+
     def step(self, u_guess, u_old, u_old1, params: StepParams):
         """One attempted nonlinear solve at (t, dt): Newton from
-        delta = u_guess - u_old. Returns (u_new, NewtonInfo)."""
+        delta = u_guess - u_old. A `u_guess` that is another tensor than
+        `u_old` is a predicted guess (see `newton_solve`). Returns
+        (u_new, NewtonInfo)."""
         ops = self.operators(u_old, u_old1, params)
         R_hi = None
         if self._hi_enabled():
@@ -199,5 +225,7 @@ class CoupledSystem:
         delta, info = newton_solve(ops.residual, ops.jacobian_action, delta,
                                    self.newton,
                                    self.block_precond_builder(ops),
-                                   residual_hi=R_hi)
+                                   residual_hi=R_hi,
+                                   predicted=u_guess is not u_old,
+                                   dyn_atol=self.dyn_atol)
         return u_old + delta.to(u_old.dtype), info

@@ -10,16 +10,20 @@ with closed-form transport and ionisation coefficients of the field
 magnitude (`fedm-streamer.py:237-239`) evaluated at quadrature points inside
 the residual.
 
-This module ports the restart path of the JAX package's
-`models/streamer.py`: the configuration, the corridor-refined tensor-product
-mesh, the cell and electrode kernels, the structured z-line multigrid on the
-Poisson row, and the far-field density floor. Building the initial state,
-the moving window and the reference-format input reader are not ported yet.
+Port of the JAX package's `models/streamer.py`: the configuration, the
+graded and corridor-refined tensor-product meshes (with the fixed-topology
+tails of the moving window), the cell kernel with optional upwind
+stabilisation, the electrode kernel, the structured z-line multigrid on the
+Poisson row, the initial state (Gaussian ion seed and the initial Poisson
+solve), the moving window (`move_window`) and state remap, and the
+far-field density floor. The reference-format input reader is not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
@@ -32,10 +36,12 @@ from ..mesh import Mesh, mark_boundaries, rectangle_mesh
 from ..model.forms import balance_equation_contrib
 from ..model.system import CoupledSystem
 from ..ops.exprs import compile_expression
+from ..ops.stabilization import MODES, directional_h, upwind_diffusion
+from ..solvers.elliptic import solve_poisson
 from ..solvers.newton import NewtonConfig
 from ..solvers.stencil import canonical_node_grid
 from ..solvers.structured_mg import StructuredPoissonMG
-from ..timestepping import AdaptiveDriver
+from ..timestepping import AdaptiveDriver, TimeState
 
 MU_E_EXPR = "2.3987*E_m**(-0.26)"
 D_E_EXPR = "4.3628e-3*E_m**0.22"
@@ -44,41 +50,65 @@ ALPHA_EXPR = "(1.1944e6 + 4.3666e26 * E_m**(-3))*exp(-2.73e7/E_m)-340.75"
 
 @dataclass
 class StreamerConfig:
-    """The JAX package's StreamerConfig fields that the restart path reads,
-    with the same names and meaning. The port builds corridor meshes only,
-    so `z_corridor` and `r_corridor` default to the bench's corridors. It
-    discretises without stabilisation and preconditions the Poisson block
-    with the structured multigrid (the JAX package's `stab_mode="off"`,
-    `poisson_precond="mg-zline"`)."""
+    """The JAX package's StreamerConfig, with the same names, defaults and
+    meaning, less the options the port does not have: the port always
+    preconditions the Poisson block with the structured z-line multigrid
+    (the JAX package's `poisson_precond="mg-zline"`), so `mg_levels` must
+    be above 1 and the mesh a tensor-product grid; `transport_zline`,
+    `row_scaled` and `zline_iters` are not ported (ROADMAP.md 9.4)."""
 
     U_w: float = 18750.0          # applied voltage [V]
+    p0: float = 760.0             # pressure [Torr]
+    Tgas: float = 300.0
     box_width: float = 0.0125     # [m] (r extent)
     box_height: float = 0.0125    # [m] (z extent)
+    nx: int = 80                  # graded cells in r (without r_corridor)
+    ny: int = 160                 # graded cells in z (without z_corridor)
+    grade: float = 2.5            # sinh grading toward the axis and seed
+    seed_amplitude: float = 5e18  # [m^-3]
+    seed_width: float = 0.4e-3    # [m]
+    seed_z: float = 1e-2          # [m]
+    background: float = 1e13      # [m^-3]
+    dt_init: float = 5e-12
     dt_min: float = 1e-15
     dt_max: float = 5e-12
     ttol: float = 1e-3
+    T_final: float = 1.4e-8
     mu_e_expr: str = MU_E_EXPR
     D_e_expr: str = D_E_EXPR
     alpha_expr: str = ALPHA_EXPR
     quad_degree: int = 2
     Em_floor: float = 1.0         # [V/m] guard for E_m^-3 style expressions
+    # artificial diffusion stab*0.5*mu*|E|*h added to the electron
+    # diffusion coefficient; 0 = plain Galerkin
+    stab_diffusion: float = 0.0
+    # upwind stabilisation (ops/stabilization.py): 'off', 'linear' or
+    # 'peclet' with the directional cell size along E
+    stab_mode: str = "off"
+    stab_coeff: float = 1.0
     dtype: object = None          # None -> float64; torch.float32 for the
                                   # fast path with float64 reductions
     mg_levels: int = 4            # the Poisson block's structured MG
     # z-corridor refinement (z0, z1, dz): uniform dz on [z0, z1], geometric
-    # coarsening outside (the port builds corridor meshes only)
-    z_corridor: tuple = (0.0, 1.08e-2, 1e-5)
-    # fixed-topology corridor tails (n_lo, n_hi), see `_z_coords_fixed`
+    # coarsening outside; None: `ny` graded cells
+    z_corridor: Optional[tuple] = None
+    # fixed-topology corridor tails (n_lo, n_hi): the same node count for
+    # every corridor position, what the moving window needs
     z_tail_cells: Optional[tuple] = None
+    # wall-clustered lower tail: its first cell at the cathode is this size
+    z_wall_dz: Optional[float] = None
     # r-corridor refinement (r1, dr): uniform dr on [0, r1], geometric
-    # coarsening out to box_width
-    r_corridor: tuple = (2e-3, 2e-5)
+    # coarsening out to box_width; None: `nx` graded cells
+    r_corridor: Optional[tuple] = None
     newton: NewtonConfig = None
     # after each accepted step, clamp the species log-densities at
     # ln(density_floor); None disables
     density_floor: Optional[float] = None
 
     def __post_init__(self):
+        if self.stab_mode not in MODES:
+            raise ValueError(f"stab_mode {self.stab_mode!r}; options are "
+                             f"{MODES}")
         if self.newton is None:
             if self.dtype == torch.float32:
                 self.newton = NewtonConfig(rtol=1e-3, max_iter=20,
@@ -89,6 +119,22 @@ class StreamerConfig:
                 self.newton = NewtonConfig(rtol=1e-4, max_iter=20,
                                            linear_tol=1e-6,
                                            linear_maxiter=800)
+
+    @property
+    def N0(self) -> float:
+        return self.p0 * 3.21877e22
+
+
+def _graded_coords(n: int, length: float, grade: float,
+                   focus: float) -> np.ndarray:
+    """Node coordinates on [0, length], sinh-refined toward `focus`
+    (0: the start, 1: the end); grade <= 0 gives a uniform grid."""
+    s = np.linspace(0.0, 1.0, n + 1)
+    if grade <= 0:
+        return s * length
+    t = np.sinh(grade * (s - focus)) / grade
+    t = (t - t[0]) / (t[-1] - t[0])
+    return t * length
 
 
 def _geom_tail(span: float, dz: float, n: int) -> np.ndarray:
@@ -113,6 +159,38 @@ def _geom_tail(span: float, dz: float, n: int) -> np.ndarray:
     return sizes * (span / sizes.sum())
 
 
+def _wall_tail(span: float, dz: float, dz_wall: float,
+               n: int) -> np.ndarray:
+    """`n` cell sizes covering exactly `span` between the wall (z = 0) and a
+    corridor edge whose adjacent cell is `dz`, clustered at both ends:
+    n//2 sizes dz_wall*g^0.. growing from the wall and the rest dz*g^1..
+    growing from the corridor, one ratio g solved by bisection; ordered
+    wall to corridor."""
+    if not (span > 0 and n >= 2 and dz_wall > 0):
+        raise ValueError("wall tail needs span > 0, n >= 2 and dz_wall > 0")
+    n1 = n // 2
+    n2 = n - n1
+
+    def ssum(g):
+        if abs(g - 1.0) < 1e-12:
+            return dz_wall * n1 + dz * n2
+        return (dz_wall * (g**n1 - 1) / (g - 1)
+                + dz * g * (g**n2 - 1) / (g - 1))
+
+    lo, hi = 1e-9, 1e3
+    for _ in range(200):
+        mid = 0.5 * (lo + hi)
+        if ssum(mid) < span:
+            lo = mid
+        else:
+            hi = mid
+    g = 0.5 * (lo + hi)
+    wall = dz_wall * g ** np.arange(n1)
+    corr = dz * g ** np.arange(1, n2 + 1)
+    sizes = np.concatenate([wall, corr[::-1]])
+    return sizes * (span / sizes.sum())
+
+
 def _z_coords_fixed(cfg: StreamerConfig) -> np.ndarray:
     """Fixed-topology corridor z-lines: n_lo + n_fine + n_hi cells whatever
     the corridor's position."""
@@ -126,11 +204,18 @@ def _z_coords_fixed(cfg: StreamerConfig) -> np.ndarray:
     z1 = z0 + n_fine * dz
     if not z1 < cfg.box_height:
         raise ValueError("padded corridor exceeds the domain")
-    lo = (z0 - np.cumsum(_geom_tail(z0, dz, n_lo)))[::-1]
-    lo[0] = 0.0
+    if cfg.z_wall_dz is not None:
+        lo = np.concatenate([[0.0], np.cumsum(
+            _wall_tail(z0, dz, cfg.z_wall_dz, n_lo))[:-1]])
+    else:
+        lo = (z0 - np.cumsum(_geom_tail(z0, dz, n_lo)))[::-1]
+        lo[0] = 0.0
     hi = z1 + np.cumsum(_geom_tail(cfg.box_height - z1, dz, n_hi))
     hi[-1] = cfg.box_height
-    return np.concatenate([lo, z0 + dz * np.arange(n_fine + 1), hi])
+    zs = np.concatenate([lo, z0 + dz * np.arange(n_fine + 1), hi])
+    if not np.all(np.diff(zs) > 0):
+        raise ValueError("fixed-topology z-lines are not increasing")
+    return zs
 
 
 def _pad_to_levels(zs: np.ndarray, mg_levels: int) -> np.ndarray:
@@ -144,7 +229,11 @@ def _pad_to_levels(zs: np.ndarray, mg_levels: int) -> np.ndarray:
 
 
 def z_coords(cfg: StreamerConfig) -> np.ndarray:
-    """z-lines: uniform dz in the corridor, geometric tails outside."""
+    """z-lines: cfg.ny cells graded toward the seed without a corridor;
+    else uniform dz in the corridor and geometric tails outside."""
+    if cfg.z_corridor is None:
+        return _graded_coords(cfg.ny, cfg.box_height, cfg.grade,
+                              cfg.seed_z / cfg.box_height)
     if cfg.z_tail_cells is not None:
         return _z_coords_fixed(cfg)
     z0, z1, dz = cfg.z_corridor
@@ -162,8 +251,11 @@ def z_coords(cfg: StreamerConfig) -> np.ndarray:
 
 
 def r_coords(cfg: StreamerConfig) -> np.ndarray:
-    """r-lines: uniform dr on [0, r1], geometric coarsening (ratio ~1.12)
-    out to box_width."""
+    """r-lines: `nx` cells graded toward the axis without a corridor; else
+    uniform dr on [0, r1], geometric coarsening (ratio ~1.12) out to
+    box_width."""
+    if cfg.r_corridor is None:
+        return _graded_coords(cfg.nx, cfg.box_width, cfg.grade, 0.0)
     r1, dr = cfg.r_corridor
     fine = np.arange(0.0, r1 + 0.5 * dr, dr)
     rest = cfg.box_width - fine[-1]
@@ -174,35 +266,96 @@ def r_coords(cfg: StreamerConfig) -> np.ndarray:
     return _pad_to_levels(rs, cfg.mg_levels)
 
 
-def make_mesh(cfg: StreamerConfig) -> Mesh:
-    """Tensor-product 'right'-split mesh on the (r, z) coordinate lines."""
-    xs, zs = r_coords(cfg), z_coords(cfg)
+def _mesh_on(cfg: StreamerConfig, xs: np.ndarray, zs: np.ndarray) -> Mesh:
+    """Tensor-product 'right'-split mesh on the (r, z) coordinate lines,
+    its boundary facets marked as in `fedm-streamer.py:98-101`: 1 the
+    cathode (z = 0), 2 the anode, 3 the axis, 4 the outer wall."""
     mesh = rectangle_mesh((0, 0), (cfg.box_width, cfg.box_height),
                           len(xs) - 1, len(zs) - 1)
     coords = mesh.coords.copy()
     coords[:, 0] = np.interp(coords[:, 0], np.unique(coords[:, 0]), xs)
     coords[:, 1] = np.interp(coords[:, 1], np.unique(coords[:, 1]), zs)
-    return Mesh(coords, mesh.cells)
+    mesh = Mesh(coords, mesh.cells)
+    mark_boundaries(mesh, [
+        ["line", 0.0, 0.0, 0.0, cfg.box_width],
+        ["line", cfg.box_height, cfg.box_height, 0.0, cfg.box_width],
+        ["line", 0.0, cfg.box_height, 0.0, 0.0],
+        ["line", 0.0, cfg.box_height, cfg.box_width, cfg.box_width],
+    ])
+    return mesh
+
+
+def make_mesh(cfg: StreamerConfig) -> Mesh:
+    """The configuration's mesh (the JAX package's `_make_mesh`)."""
+    return _mesh_on(cfg, r_coords(cfg), z_coords(cfg))
+
+
+# -- moving-window remap weights ------------------------------------------
+
+
+def _tophat_avg_row(zs: np.ndarray, a: float, b: float) -> np.ndarray:
+    """Nodal weights of (1/(b-a)) * integral_a^b u(z) dz for u piecewise
+    linear on the z-lines `zs` (exact trapezoid over the merged grid)."""
+    a, b = max(a, zs[0]), min(b, zs[-1])
+    pts = np.concatenate(([a], zs[(zs > a) & (zs < b)], [b]))
+    i1 = np.clip(np.searchsorted(zs, pts), 1, len(zs) - 1)
+    i0 = i1 - 1
+    w = (pts - zs[i0]) / (zs[i1] - zs[i0])
+    seg = np.diff(pts)
+    coef = np.zeros(len(pts))
+    coef[:-1] += 0.5 * seg
+    coef[1:] += 0.5 * seg
+    row = np.zeros(len(zs))
+    np.add.at(row, i0, coef * (1.0 - w))
+    np.add.at(row, i1, coef * w)
+    return row / (b - a)
+
+
+def _z_interp_weights(zs: np.ndarray, zd: np.ndarray) -> np.ndarray:
+    """[len(zd), len(zs)] z-linear interpolation matrix (identity on
+    matching z-planes) — `move_window`'s remap."""
+    n_d, n_s = len(zd), len(zs)
+    idx1 = np.clip(np.searchsorted(zs, zd), 1, n_s - 1)
+    idx0 = idx1 - 1
+    w = (zd - zs[idx0]) / (zs[idx1] - zs[idx0])
+    W = np.zeros((n_d, n_s))
+    W[np.arange(n_d), idx0] = 1.0 - w
+    # += not =: exact node hits (w = 0 or 1) must not overwrite
+    np.add.at(W, (np.arange(n_d), idx1), w)
+    return W
+
+
+def _z_remap_weights(zs: np.ndarray, zd: np.ndarray) -> np.ndarray:
+    """[len(zd), len(zs)] remap matrix: z-linear interpolation rows, except
+    interior destination nodes whose local spacing exceeds 1.5x the source
+    spacing there, which average the source over a symmetric top-hat of
+    the local destination spacing (anti-aliasing restriction). Boundary
+    nodes always interpolate."""
+    n_d, n_s = len(zd), len(zs)
+    W = _z_interp_weights(zs, zd)
+    src_gap = np.diff(zs)
+    gap_at = src_gap[np.clip(np.searchsorted(zs, zd) - 1, 0, n_s - 2)]
+    for j in range(1, n_d - 1):
+        h_half = 0.5 * min(zd[j] - zd[j - 1], zd[j + 1] - zd[j])
+        if 2.0 * h_half > 1.5 * gap_at[j]:
+            W[j] = _tophat_avg_row(zs, zd[j] - h_half, zd[j] + h_half)
+    return W
 
 
 class StreamerModel:
     SIGN = (1.0, -1.0)  # ion, electron charge signs
 
-    def __init__(self, cfg: StreamerConfig = None, device="cuda"):
+    def __init__(self, cfg: StreamerConfig = None, mesh: Optional[Mesh] = None,
+                 device="cuda"):
+        """`mesh`: a mesh of another model of the same box to share (the
+        float64 escalation model shares the float32 one's)."""
         self.cfg = cfg = cfg or StreamerConfig()
         if cfg.mg_levels <= 1:
             raise NotImplementedError(
                 "only the structured multigrid Poisson preconditioner "
                 "(mg_levels > 1) is ported")
         self.device = dev = resolve_device(device)
-        self.mesh = mesh = make_mesh(cfg)
-        # boundary list as in `fedm-streamer.py:98-101`
-        mark_boundaries(mesh, [
-            ["line", 0.0, 0.0, 0.0, cfg.box_width],                       # 1
-            ["line", cfg.box_height, cfg.box_height, 0.0, cfg.box_width],  # 2
-            ["line", 0.0, cfg.box_height, 0.0, 0.0],                      # 3
-            ["line", 0.0, cfg.box_height, cfg.box_width, cfg.box_width],  # 4
-        ])
+        self.mesh = mesh = make_mesh(cfg) if mesh is None else mesh
         self.space = FunctionSpace(mesh)
         self.batch = CellBatch(self.space, quad_degree=cfg.quad_degree,
                                axisymmetric=True, dtype=cfg.dtype, device=dev)
@@ -241,6 +394,80 @@ class StreamerModel:
         return StructuredPoissonMG(xs, zs, mask_grid, self.cfg.mg_levels,
                                    dtype=self.batch.dtype, device=self.device)
 
+    # -- moving window --------------------------------------------------------
+
+    def move_window(self, new_corridor: tuple, state: TimeState = None):
+        """Re-centre the fine z-corridor: rebuild every coordinate-derived
+        table (cell and facet quadrature tables, the multigrid's stencils,
+        transfers and coarse inverse) for the new window position, with the
+        same topology and shapes, and swap them into the running system.
+        The driver and its state survive.
+
+        Returns `state` remapped z-linearly per r-line onto the new nodes
+        (see `_remap_z`), or None when no state is given."""
+        cfg = self.cfg
+        if cfg.z_tail_cells is None:
+            raise ValueError("move_window needs the fixed-topology z-lines "
+                             "(StreamerConfig.z_tail_cells)")
+        zs_old = np.unique(self.mesh.coords[:, 1])
+        xs = np.unique(self.mesh.coords[:, 0])
+        new_cfg = dataclasses.replace(cfg, z_corridor=tuple(new_corridor))
+        zs_new = z_coords(new_cfg)
+        if len(zs_new) != len(zs_old):
+            raise ValueError("the window moved to another node count; the "
+                             "corridor's span must stay the same")
+        mesh = _mesh_on(cfg, xs, zs_new)
+        space = FunctionSpace(mesh)
+        batch = CellBatch(space, quad_degree=cfg.quad_degree,
+                          axisymmetric=True, dtype=cfg.dtype,
+                          device=self.device)
+        fb = FacetBatch(space, markers=[1, 2], quad_degree=cfg.quad_degree,
+                        axisymmetric=True, dtype=cfg.dtype,
+                        device=self.device)
+        self.system.update_geometry([batch, fb])
+        self._smg.update_geometry(xs, zs_new)
+        # self.batch is the system's cell batch, updated in place
+        self.mesh, self.space, self.cfg = mesh, space, new_cfg
+        if state is None:
+            return None
+        return self._remap_z(state, zs_old, zs_new, len(xs))
+
+    def remap_state(self, dst_model: "StreamerModel", state: TimeState,
+                    restrict: bool = True) -> TimeState:
+        """`state` interpolated onto another StreamerModel's mesh, which
+        must share this mesh's r-lines: every column z-linearly per r-line
+        (linear in u = ln n, so a geometric mean of densities). History and
+        controller state carry over. `restrict` (a cross-resolution resume)
+        averages locally coarser destination nodes over a top-hat instead
+        of sampling them (see `_z_remap_weights`)."""
+        src_c, dst_c = self.space.dof_coords, dst_model.space.dof_coords
+        rs, rd = np.unique(src_c[:, 0]), np.unique(dst_c[:, 0])
+        if not (len(rs) == len(rd) and np.allclose(rs, rd)):
+            raise ValueError("remap_state needs identical radial node lines")
+        return self._remap_z(state, np.unique(src_c[:, 1]),
+                             np.unique(dst_c[:, 1]), len(rs),
+                             restrict=restrict)
+
+    def _remap_z(self, state: TimeState, zs: np.ndarray, zd: np.ndarray,
+                 n_r: int, restrict: bool = False) -> TimeState:
+        """Per-r-line z remap of u, u_old and u_old1 from the z-lines `zs`
+        onto `zd`: z-linear interpolation, or with `restrict` the
+        anti-aliasing weights of `_z_remap_weights`. W @ U runs in float64
+        on the state's device."""
+        W_np = (_z_remap_weights(zs, zd) if restrict
+                else _z_interp_weights(zs, zd))
+        W = torch.as_tensor(W_np, dtype=torch.float64, device=state.u.device)
+        n_eq = self.n_eq
+
+        def remap(u):
+            # node id = iz * n_r + ir (mesh/generators.py layout)
+            V = W @ u.reshape(len(zs), n_r * n_eq)
+            return V.reshape(len(zd) * n_r, n_eq)
+
+        return dataclasses.replace(state, u=remap(state.u),
+                                   u_old=remap(state.u_old),
+                                   u_old1=remap(state.u_old1))
+
     # -- kernels --------------------------------------------------------------
 
     def _coeffs(self, E_m):
@@ -250,16 +477,23 @@ class StreamerModel:
                 self._alpha(E_m=E_m))
 
     def _cell_kernel(self, cb: CellBatch, delta_e, ctx):
+        cfg = self.cfg
         p = ctx["params"]
         u_old_e, d_hist_e = ctx["u_old"], ctx["d_hist"]
         u_e = u_old_e + delta_e
 
         E_q = -cb.grad(u_e[..., 2])  # [c, q, dim]
-        E_m = torch.sqrt(torch.sum(E_q * E_q, dim=-1)
-                         + self.cfg.Em_floor**2)
+        E_m = torch.sqrt(torch.sum(E_q * E_q, dim=-1) + cfg.Em_floor**2)
         mu_q, D_q, alpha_q = self._coeffs(E_m)
         ne_q = torch.exp(cb.value(u_e[..., 1]))
         gue_q = cb.grad(u_e[..., 1])
+        if cfg.stab_diffusion:
+            D_q = D_q + (cfg.stab_diffusion * 0.5
+                         * mu_q * E_m * cb.h[:, None])
+        if cfg.stab_mode != "off":
+            h_v = directional_h(E_q, E_m, cb.h_dir)
+            D_q = upwind_diffusion(D_q, mu_q * E_m, h_v, cfg.stab_mode,
+                                   cfg.stab_coeff)
 
         # impact-ionisation source (`fedm-streamer.py:244-245`)
         f_ion = alpha_q * mu_q * E_m * ne_q
@@ -293,6 +527,50 @@ class StreamerModel:
         zero = torch.zeros_like(contrib_e)
         return torch.stack([zero, contrib_e, zero], dim=-1)
 
+    # -- initial state --------------------------------------------------------
+
+    def initial_state(self) -> TimeState:
+        """Gaussian ion seed and uniform electrons
+        (`fedm-streamer.py:169-172`) and the initial Poisson solve for Phi
+        (`fedm-streamer.py:205-215`), preconditioned by the structured
+        multigrid: plain Jacobi-CG exhausts `maxiter` on anisotropic
+        corridor meshes. Raises RuntimeError when the solve misses its
+        tolerance (1e-12 in float64, 1e-6 in float32) by more than 100x
+        (at least 1e-5). The state is float64 whatever the compute dtype;
+        the solve's (relres, iterations) stay in `initial_poisson`."""
+        cfg = self.cfg
+        dev, f64 = self.device, torch.float64
+        coords = self.space.dof_coords
+        r, z = coords[:, 0], coords[:, 1]
+        n_ion = cfg.background + cfg.seed_amplitude * np.exp(
+            -(r**2 + (z - cfg.seed_z) ** 2) / cfg.seed_width**2)
+        u_ion = torch.as_tensor(np.log(n_ion), dtype=f64, device=dev)
+        u_el = torch.full((self.space.n_dofs,), float(np.log(cfg.background)),
+                          dtype=f64, device=dev)
+        # float64 arithmetic on the compute dtype's tables and constant,
+        # as the JAX package's promotion of its mixed-type einsums
+        b64 = self.batch.astype(f64)
+        q = torch.tensor(elementary_charge / epsilon_0,
+                         dtype=self.batch.dtype, device=dev)
+        rho_q = (torch.exp(b64.value(b64.gather(u_ion)))
+                 - torch.exp(b64.value(b64.gather(u_el)))) * q
+        cathode = np.isclose(z, 0.0)
+        anode = np.isclose(z, cfg.box_height)
+        g = np.where(anode, cfg.U_w, 0.0)
+        tol = 1e-12 if self.batch.dtype == f64 else 1e-6
+        phi, relres, iters = solve_poisson(
+            self.batch, rho_q, torch.as_tensor(cathode | anode, device=dev),
+            torch.as_tensor(g, dtype=self.batch.dtype, device=dev),
+            tol=tol, maxiter=4000, precond=self.system._ell[1])
+        relres = float(relres)
+        self.initial_poisson = (relres, iters)
+        if not relres < max(tol * 100, 1e-5):
+            raise RuntimeError(f"initial Poisson solve did not converge "
+                               f"(relres={relres:.2e})")
+        u = torch.stack([u_ion, u_el, phi.to(f64)], dim=-1)
+        return TimeState(u=u, u_old=u, u_old1=u, t=0.0, dt=cfg.dt_init,
+                         dt_old=1e30)
+
     # -- driver ----------------------------------------------------------------
 
     def floor_projection(self) -> Optional[Callable]:
@@ -312,11 +590,26 @@ class StreamerModel:
 
         return clamp
 
-    def make_driver(self, verbose: bool = False) -> AdaptiveDriver:
+    def make_driver(self, error_log: Optional[Path] = None,
+                    verbose: bool = False, **kw) -> AdaptiveDriver:
         """The adaptive driver with the configured tolerances, monitoring
         the electron density (index n_eq - 2, LFA) and applying the density
-        floor to accepted states."""
+        floor to accepted states; `kw` are further AdaptiveDriver options."""
         return AdaptiveDriver(
             self.system, monitor_idx=self.n_eq - 2, ttol=self.cfg.ttol,
-            dt_min=self.cfg.dt_min, dt_max=self.cfg.dt_max, verbose=verbose,
-            post_accept=self.floor_projection())
+            dt_min=self.cfg.dt_min, dt_max=self.cfg.dt_max,
+            error_log=error_log, verbose=verbose,
+            post_accept=self.floor_projection(), **kw)
+
+    def run(self, T_final: Optional[float] = None,
+            error_log: Optional[Path] = None, verbose: bool = False,
+            max_steps: int = 100000) -> TimeState:
+        """From the initial state to T_final (default cfg.T_final), each
+        attempted step clamped to the horizon so the run lands on it."""
+        T = T_final if T_final is not None else self.cfg.T_final
+        driver = self.make_driver(error_log, verbose)
+        state = self.initial_state()
+        while state.t < T * (1 - 1e-12) and state.n_accepted < max_steps:
+            state.dt = min(state.dt, T - state.t)
+            state = driver.advance(state)
+        return state

@@ -13,7 +13,9 @@ sum into each destination; entries outside [0, n_flat) (the padding
 sentinel `n_flat`) contribute zero. Each row's sum starts from zero and adds
 the slots in order, and only then meets `out`. All trailing dims of `flat`
 are summed in one launch. On the card `idx`, `rows`, `flat` and `out` are
-contiguous (row-major, as the batches keep them).
+contiguous (row-major, as the batches keep them), and each launch runs on
+their device (made current for the launch) and that device's current
+stream, whichever device the calling thread had current.
 
 On a CUDA tensor each form launches the hand-written kernel
 `csrc/ell_scatter.cu` (built with nvcc at first use) or raises; on CPU
@@ -114,10 +116,11 @@ def ell_scatter(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n_rows,) + tuple(flat.shape[1:]), dtype=flat.dtype,
                       device=flat.device)
     if n_rows and out.numel():
-        _raise_on(fn(idx.data_ptr(), flat.data_ptr(), out.data_ptr(),
-                     n_rows, max_val, flat.shape[0],
-                     math.prod(flat.shape[1:]), _stream(flat)),
-                  "ell_scatter")
+        with torch.cuda.device(flat.device):
+            _raise_on(fn(idx.data_ptr(), flat.data_ptr(), out.data_ptr(),
+                         n_rows, max_val, flat.shape[0],
+                         math.prod(flat.shape[1:]), _stream(flat)),
+                      "ell_scatter")
         ell_scatter.launches += 1
     return out
 
@@ -149,11 +152,12 @@ def ell_scatter_add_(out: torch.Tensor, flat: torch.Tensor,
     if not (out.is_contiguous() and (rows is None or rows.is_contiguous())):
         raise ValueError("ell_scatter_add_ needs a contiguous out and rows")
     if n_rows and out.numel():
-        _raise_on(fn(idx.data_ptr(),
-                     None if rows is None else rows.data_ptr(),
-                     flat.data_ptr(), out.data_ptr(), n_rows, max_val,
-                     flat.shape[0], math.prod(flat.shape[1:]),
-                     _stream(flat)), "ell_scatter_add_")
+        with torch.cuda.device(flat.device):
+            _raise_on(fn(idx.data_ptr(),
+                         None if rows is None else rows.data_ptr(),
+                         flat.data_ptr(), out.data_ptr(), n_rows, max_val,
+                         flat.shape[0], math.prod(flat.shape[1:]),
+                         _stream(flat)), "ell_scatter_add_")
         ell_scatter_add_.launches += 1
     return out
 

@@ -55,6 +55,37 @@ def _where_small(x: torch.Tensor, tiny: float) -> torch.Tensor:
     return torch.where(x.abs() < tiny, 1.0, x)
 
 
+def cg(matvec: Callable, b: torch.Tensor,
+       x0: Optional[torch.Tensor] = None,
+       precond: Optional[Callable] = None, tol: float = 1e-10,
+       atol: float = 0.0, maxiter: int = 1000):
+    """Preconditioned conjugate gradients for SPD operators. The two
+    denominators are guarded by the float64 floor TINY, which only an
+    exactly zero p.Ap or r.z reaches: on an SPD system the iterates are the
+    JAX package's `cg`."""
+    M = precond or _identity
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - matvec(x)
+    p = M(r)
+    rz = _dot(r, p)
+    bnorm = float(torch.clamp(_norm(b), min=1e-300))
+    target = max(tol * bnorm, atol)
+    k = 0
+    dt = x.dtype
+    while float(_norm(r)) > target and k < maxiter:
+        Ap = matvec(p)
+        alpha = (rz / _where_small(_dot(p, Ap), TINY)).to(dt)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = _dot(r, z)
+        beta = (rz_new / _where_small(rz, TINY)).to(dt)
+        p = z + beta * p
+        rz = rz_new
+        k += 1
+    return x, _norm(r) / bnorm, k
+
+
 def bicgstab(matvec: Callable, b: torch.Tensor,
              x0: Optional[torch.Tensor] = None,
              precond: Optional[Callable] = None, tol: float = 1e-8,

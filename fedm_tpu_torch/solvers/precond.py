@@ -6,13 +6,14 @@ from __future__ import annotations
 import torch
 
 
-def invert_blocks(A: torch.Tensor) -> torch.Tensor:
+def invert_blocks(A: torch.Tensor, with_count: bool = False):
     """Invert a batch of 3x3 matrices A [n, 3, 3] by adjugate, after
     per-row equilibration (inv(A) = inv(D^-1 A) D^-1 with D the row maxima,
     so the cofactor products stay O(1) whatever the rows' physical scale).
     Blocks whose inverse comes out non-finite (a structurally singular
     block, e.g. an underflowed log-density column) fall back to the
-    diagonal pseudo-inverse, with unit action on dead rows."""
+    diagonal pseudo-inverse, with unit action on dead rows. `with_count`
+    also returns how many blocks took that fallback."""
     if A.shape[-1] != 3:
         raise NotImplementedError("invert_blocks is ported for 3x3 blocks")
     A_orig = A
@@ -40,7 +41,10 @@ def invert_blocks(A: torch.Tensor) -> torch.Tensor:
     d = torch.diagonal(A_orig, dim1=-2, dim2=-1)
     dinv = torch.where((d.abs() > 0) & torch.isfinite(d), 1.0 / d, 1.0)
     eye = torch.eye(3, dtype=A.dtype, device=A.device)
-    return torch.where(ok, inv, dinv[..., :, None] * eye)
+    out = torch.where(ok, inv, dinv[..., :, None] * eye)
+    if with_count:
+        return out, int((~ok).sum())
+    return out
 
 
 def block_apply(inv_blocks: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

@@ -130,18 +130,30 @@ class StructuredPoissonMG:
             raise ValueError("need at least two levels (check divisibility)")
         self.n_i, self.n_j = self._shapes[0]
         self.n_dofs = self.n_i * self.n_j
+        self._masks_np = masks
         self._masks = [torch.as_tensor(m, device=self.device) for m in masks]
-        self._build(xs, zs, masks)
+        self._build(xs, zs)
+
+    def update_geometry(self, xs, zs) -> None:
+        """Rebuild the stencil hierarchy, the transfer weights and the
+        coarse inverse for new coordinate lines with the same counts (the
+        moving window's nodes), in place: same shapes, same device."""
+        xs, zs = np.asarray(xs, np.float64), np.asarray(zs, np.float64)
+        if (len(xs), len(zs)) != self._shapes[0]:
+            raise ValueError(f"coordinate line counts {(len(xs), len(zs))} "
+                             f"differ from the hierarchy's "
+                             f"{self._shapes[0]}")
+        self._build(xs, zs)
 
     def _put(self, a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=self.dtype,
                                device=self.device)
 
-    def _build(self, xs, zs, masks) -> None:
+    def _build(self, xs, zs) -> None:
         self.S, self.wx, self.wz = [], [], []
         for k in range(self.n_levels):
             S = apply_mask_to_stencil(p1_stiffness_stencil(xs, zs),
-                                      masks[k])
+                                      self._masks_np[k])
             self.S.append(self._put(S))
             if k < self.n_levels - 1:
                 xc, zc = xs[::2], zs[::2]

@@ -1,0 +1,147 @@
+"""The port's entry point `python -m fedm_tpu_torch.bagheri_run`: its
+presets are the JAX tool's (`tools/bagheri_run.py`), options the port does
+not have are refused with the slice that brings them, and a CPU run on a
+small moving window (float32 with the float64 defect, the bagheri14
+solver options) starts from t = 0, moves its window, writes checkpoints
+with meta and logs, and resumes from them: on the same mesh, and across a
+change of the window's dz (top-hat remap, BDF history restarted).
+"""
+
+import importlib.util
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from fedm_tpu_torch import bagheri_run
+from fedm_tpu_torch.io import load_checkpoint
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _jax_tool():
+    spec = importlib.util.spec_from_file_location(
+        "jax_bagheri_run", ROOT / "tools" / "bagheri_run.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_presets_are_the_reference_tools():
+    assert bagheri_run.PRESETS == _jax_tool().PRESETS
+
+
+def test_preset_typo_is_refused(monkeypatch, capsys):
+    monkeypatch.setitem(bagheri_run.PRESETS, "typo",
+                        dict(window_dz=1e-5, windw_span=1e-3))
+    with pytest.raises(SystemExit):
+        bagheri_run.parse_args(["--out", "x"])
+    assert "unknown keys: ['windw_span']" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,slice_", [
+    (["--preset", "bagheri14"], "slice 10"),
+    (["--direct-rescue"], "slice 10"),
+    (["--devices", "2"], "slice 12"),
+    (["--tzline"], "9.4"),
+    (["--row-scaled"], "9.4"),
+    (["--precond", "zline"], "9.4"),
+    (["--precond", "mg"], "slice 11"),
+], ids=["preset-direct-rescue", "direct-rescue", "devices", "tzline",
+        "row-scaled", "zline", "mg"])
+def test_options_not_ported_are_refused(argv, slice_, capsys):
+    with pytest.raises(SystemExit):
+        bagheri_run.parse_args(["--out", "x", *argv])
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and slice_ in err
+
+
+@pytest.mark.parametrize("preset,refused", [
+    ("bagheri14", True), ("bagheri14-fullgap", False)])
+def test_f64_is_refused_on_a_moving_window(preset, refused, capsys):
+    """As in the reference tool: --f64 takes the static full-gap mesh, not
+    the moving window."""
+    argv = ["--preset", preset, "--no-direct-rescue", "--f64", "--out", "x"]
+    if refused:
+        with pytest.raises(SystemExit):
+            bagheri_run.parse_args(argv)
+        assert "--f64 with a moving window" in capsys.readouterr().err
+    else:
+        assert bagheri_run.parse_args(argv).f64
+
+
+def test_bagheri14_preset_parses():
+    args = bagheri_run.parse_args(["--preset", "bagheri14",
+                                   "--no-direct-rescue", "--out", "x"])
+    assert (args.window_dz, args.tail_cells, args.hi_res, args.stab,
+            args.predictor, args.fail_dt_cap, args.true_res_rescue,
+            args.direct_rescue, args.device) == (
+        1e-5, "10,48", True, "off", 1.0, 0.7, 1.0, False, "cuda")
+
+
+def test_window_corr_matches_the_reference_placement():
+    span, dz = 1.5e-3, 1e-5
+    assert bagheri_run.window_corr(1e-2, span, dz) == (
+        1e-2 - 0.6 * span, 1e-2 + 0.4 * span, dz)
+    assert bagheri_run.window_corr(0.0, span, dz) == (1e-4, 1e-4 + span, dz)
+    assert bagheri_run.window_corr(1.2e-2, span, dz) == (
+        1.19e-2 - span, 1.19e-2, dz)
+
+
+SMALL_RUN = ["--device", "cpu", "--window-dz", "1e-4", "--tail-cells",
+             "4,8", "--dr", "2e-4", "--r1", "2e-3", "--no-fallback",
+             "--hi-res", "--stab", "off", "--linear-tol", "1e-2",
+             "--predictor", "1.0", "--fail-dt-cap", "0.7",
+             "--true-res-rescue", "1.0", "--report-every", "1",
+             "--checkpoint-every", "2", "--diag-guards"]
+
+
+def test_run_moves_the_window_checkpoints_and_resumes(tmp_path, monkeypatch,
+                                                      capsys):
+    # every axis node counts as streamer: the front sits at the cathode, so
+    # the first report moves the window down to its clamp at z = 1e-4
+    monkeypatch.setattr(bagheri_run, "FRONT_DENSITY", 0.0)
+    out = tmp_path / "run"
+    assert bagheri_run.main([*SMALL_RUN, "--out", str(out),
+                             "--max-steps", "3"]) == 0
+    log = capsys.readouterr().out
+    assert "REMESH: window (0.0091" in log and "REMESH done" in log
+    assert "n_guarded=" in log
+    state, meta = load_checkpoint(out / "checkpoint.npz", device="cpu",
+                                  with_meta=True)
+    assert state.n_accepted == 3 and state.t > 0
+    assert tuple(float(v) for v in meta["z_corridor"]) == (1e-4, 1.6e-3,
+                                                           1e-4)
+    assert tuple(int(v) for v in meta["z_tail_cells"]) == (4, 8)
+    assert json.loads(str(meta["protocol"]))["window_dz"] == 1e-4
+    assert json.loads((out / "window.json").read_text()) == [1e-4, 1.6e-3,
+                                                             1e-4]
+    n_err = len((out / "relative error.log").read_text().splitlines())
+    newton = (out / "newton.log").read_text().splitlines()
+    assert [line.split()[0] for line in newton] == ["1", "2", "3"]
+    assert n_err >= 3
+
+    # same-mesh resume: the window's position comes from the meta
+    assert bagheri_run.main([*SMALL_RUN, "--out", str(out), "--resume",
+                             "--max-steps", "4"]) == 0
+    log = capsys.readouterr().out
+    assert f"resumed from {out / 'checkpoint.npz'}: t={state.t:.4e}" in log
+    assert "z_corridor=(1.0000e-04,1.6000e-03,dz=0.0001) [moving]" in log
+    assert "remapped" not in log
+    resumed = load_checkpoint(out / "checkpoint.npz", device="cpu")
+    assert resumed.n_accepted == 4 and resumed.t > state.t
+
+    # a resume at half the window's dz: top-hat remap, BDF restart
+    fine = [a if a != "1e-4" else "5e-5" for a in SMALL_RUN]
+    assert bagheri_run.main([*fine, "--out", str(out), "--resume",
+                             "--resume-dt", "1e-13", "--max-steps", "5"]) == 0
+    log = capsys.readouterr().out
+    assert "remapped checkpoint z-lines" in log
+    assert "BDF history restarted (backward-Euler first step, " \
+           "dt=1.000e-13)" in log
+    state, meta = load_checkpoint(out / "checkpoint.npz", device="cpu",
+                                  with_meta=True)
+    assert state.n_accepted == 5
+    assert float(meta["z_corridor"][2]) == 5e-5
+    assert np.isfinite(state.u.numpy()).all()

@@ -31,6 +31,20 @@ def cuda():
     return torch.device("cuda")
 
 
+def test_event_ms_of_a_copy_lies_above_its_memory_bound(cuda):
+    """`devtime.event_ms`, the timing `device_ms` falls back to where the
+    profiler drops its traces: a 256 MiB device copy takes between its HBM
+    bound and three times it."""
+    from fedm_tpu_torch.devtime import HBM_BYTES_PER_S, event_ms
+
+    src = torch.ones(2**26, dtype=torch.float32, device=cuda)
+    dst = torch.empty_like(src)
+    ms = event_ms(lambda: dst.copy_(src), [()] * 10)
+    bound = 2 * src.numel() * src.element_size() / HBM_BYTES_PER_S * 1e3
+    assert bound <= ms <= 3 * bound
+    assert torch.equal(dst, src)
+
+
 def _ell_case(C, seed=0):
     """The case of tests/unit/test_pallas_scatter.py with a trailing width
     C: random rows, about a fifth of the entries the padding sentinel."""
@@ -206,3 +220,74 @@ def test_main_path_small_on_cuda(cuda):
     for k in range(3):
         assert np.abs(ug[:, k] - uc[:, k]).max() <= 1e-6 * np.abs(
             uc[:, k]).max()
+
+
+def test_kernel_runs_on_the_tensors_device(cuda):
+    """Both forms of K1 on cuda:1 while cuda:0 is the current device: each
+    launch must run on its tensors' device (and that device's stream)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda:1")
+    flat, idx = _ell_case(3)
+    rows, cidx, cflat, out = _compact_case(2, 3, 37)
+    with torch.cuda.device(0):
+        f = torch.as_tensor(flat, device=dev)
+        i = torch.as_tensor(idx, dtype=torch.int32, device=dev)
+        got = ell_scatter(f, i)
+        o = torch.as_tensor(out, device=dev)
+        r = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+        ci = torch.as_tensor(cidx, dtype=torch.int32, device=dev)
+        cf = torch.as_tensor(cflat, device=dev)
+        ref_add = ell_scatter_add_ref(o.clone(), cf, ci, r)
+        ell_scatter_add_(o, cf, ci, r)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev)
+    assert got.device == dev and o.device == dev
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               ell_scatter_ref(f, i).cpu().numpy(),
+                               rtol=1e-13, atol=1e-13 * np.abs(flat).max())
+    np.testing.assert_allclose(o.cpu().numpy(), ref_add.cpu().numpy(),
+                               rtol=1e-13,
+                               atol=1e-13 * np.abs(out).max())
+
+
+def _window_model(device):
+    cfg = StreamerConfig(z_corridor=(8.5e-3, 1e-2, 5e-5),
+                         r_corridor=(2e-3, 2e-4), z_tail_cells=(12, 12),
+                         mg_levels=3, density_floor=1e13)
+    model = StreamerModel(cfg, device=device)
+    model.system.use_gather_scatter()
+    return model
+
+
+def test_initial_state_and_move_window_on_cuda(cuda):
+    """float64 on both devices: the initial Poisson solve and the remap
+    agree to 1e-12 of each column's magnitude (summation order), and the
+    residual on the moved mesh to 1e-12 per equation, at the moved state
+    with noise added (at the solved potential the Poisson row cancels to
+    1e-6 of its terms, and rounding shows at 1e-10 of what is left)."""
+    gpu, cpu = _window_model(cuda), _window_model("cpu")
+    sg, sc = gpu.initial_state(), cpu.initial_state()
+    assert sg.u.device.type == "cuda" and sg.u.dtype == torch.float64
+
+    def close(a, b, rtol=1e-12):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        for k in range(b.shape[1]):
+            assert np.abs(a[:, k] - b[:, k]).max() <= \
+                rtol * np.abs(b[:, k]).max(), k
+
+    close(sg.u, sc.u)
+    corr = (7.9e-3, 9.4e-3, 5e-5)
+    before = ell_scatter_add_.launches
+    sg, sc = gpu.move_window(corr, sg), cpu.move_window(corr, sc)
+    close(sg.u, sc.u)
+    np.testing.assert_array_equal(gpu.mesh.coords, cpu.mesh.coords)
+    p = StepParams(sg.t + sg.dt, sg.dt, sg.dt_old)
+    noise = np.random.default_rng(0).standard_normal(sc.u.shape) * [
+        1e-3, 1e-3, 10.0]
+    u = sc.u + torch.as_tensor(noise)
+    # the same inputs on both devices: the states agree to 1e-12 above
+    Fg = gpu.system.residual(u.to(cuda), sc.u.to(cuda), sc.u_old.to(cuda), p)
+    Fc = cpu.system.residual(u, sc.u, sc.u_old, p)
+    close(Fg, Fc)
+    assert ell_scatter_add_.launches > before

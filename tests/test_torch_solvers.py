@@ -159,3 +159,15 @@ def test_newton_verdict(fnorm, stalls, capped):
     ref = jax_converged(fnorm, 1000.0, 1.0, stalls, False, JaxNewton(**cfg),
                         capped)
     assert got == bool(ref)
+
+
+@pytest.mark.parametrize("solver,taken", [
+    ("bicgstab", True), ("gmres", True), ("cg", False), ("minres", False)])
+def test_newton_takes_bicgstab_or_gmres(solver, taken):
+    """The Newton inner solve is BiCGStab (with its GMRES fallback) or
+    GMRES(m): the coupled Jacobian is not symmetric, so CG is refused."""
+    if taken:
+        assert NewtonConfig(linear_solver=solver).linear_solver == solver
+    else:
+        with pytest.raises(ValueError, match="linear_solver"):
+            NewtonConfig(linear_solver=solver)
