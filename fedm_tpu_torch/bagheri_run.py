@@ -438,7 +438,7 @@ def main(argv=None) -> int:
     n_last = last_saved = state.n_accepted
     while state.t < T * (1 - 1e-12) and state.n_accepted < args.max_steps:
         state.dt = min(state.dt, T - state.t)
-        state = driver.advance(state)
+        state = driver.advance(state, {})
         # fire on a change of n_accepted only
         if (state.n_accepted % args.report_every == 0
                 and state.n_accepted != n_last):

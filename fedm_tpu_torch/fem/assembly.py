@@ -370,3 +370,28 @@ class FacetBatch(_Batch):
         """Boundary integral of s * phi_a: [n_f, n_q, ...] -> [n_f, 3, ...]."""
         return torch.einsum("fqa,fq...->fa...", self.N,
                             s * _scale_like(self.scale, s))
+
+
+def project(s_q: torch.Tensor, batch: CellBatch, lumped: bool = False,
+            tol: float = None, maxiter: int = 200) -> torch.Tensor:
+    """L2-project quadrature-point values `s_q [n_cells, n_q]` onto the P1
+    space: M x = b by Jacobi-preconditioned CG from the lumped answer (the
+    reference's per-step `project(...)`), or with `lumped=True` the
+    row-sum mass diagonal alone. The tolerance follows the batch's type:
+    1e-12 in float64, 1e-6 in float32. On the ELL layout every scatter is
+    a dense K1 launch with one component."""
+    if tol is None:
+        tol = 1e-12 if batch.dtype == torch.float64 else 1e-6
+    b = batch.scatter(batch.mass(s_q))
+    lump = batch.scatter(batch.mass(torch.ones_like(batch.scale)))
+    if lumped:
+        return b / lump
+
+    def matvec(x):
+        return batch.scatter(batch.mass(batch.value(batch.gather(x))))
+
+    from ..solvers.linear import cg
+
+    x, _, _ = cg(matvec, b, x0=b / lump, precond=lambda r: r / lump,
+                 tol=tol, maxiter=maxiter)
+    return x

@@ -1,4 +1,6 @@
-"""Structured rectangle mesh generator (the 'right' diagonal split)."""
+"""Structured rectangle mesh generator with the three diagonal patterns of
+the JAX package's `mesh/generators.py` (the same vertex and cell order:
+every ELL table and sum order follows from it)."""
 
 from __future__ import annotations
 
@@ -7,12 +9,21 @@ import numpy as np
 from .mesh import Mesh
 
 
-def rectangle_mesh(p0: tuple, p1: tuple, nx: int, ny: int) -> Mesh:
-    """Triangle mesh of the rectangle [p0, p1] with nx-by-ny quads, each
-    split lower-left to upper-right. Vertex id = iy*(nx+1) + ix; the lower
-    triangles (ll, lr, ur) of all quads come first, then the upper ones
-    (ll, ur, ul), each block y-major — the layout structured assembly
-    relies on."""
+def rectangle_mesh(p0: tuple, p1: tuple, nx: int, ny: int,
+                   diagonal: str = "right") -> Mesh:
+    """Triangle mesh of the rectangle [p0, p1] with nx-by-ny quads.
+    Grid vertex id = iy*(nx+1) + ix.
+
+    diagonal:
+      'right'   - each quad split lower-left to upper-right: the lower
+                  triangles (ll, lr, ur) of all quads first, then the upper
+                  ones (ll, ur, ul), each block y-major — the layout
+                  structured assembly relies on;
+      'left'    - split lower-right to upper-left: (ll, lr, ul), then
+                  (lr, ur, ul);
+      'crossed' - a centre vertex per quad (ids after the grid's, in quad
+                  order) and 4 triangles per quad: (ll, lr, c), (lr, ur, c),
+                  (ur, ul, c), (ul, ll, c), each block over all quads."""
     xs = np.linspace(float(p0[0]), float(p1[0]), nx + 1)
     ys = np.linspace(float(p0[1]), float(p1[1]), ny + 1)
     X, Y = np.meshgrid(xs, ys, indexing="xy")
@@ -23,6 +34,21 @@ def rectangle_mesh(p0: tuple, p1: tuple, nx: int, ny: int) -> Mesh:
     lr = ll + 1
     ul = ll + (nx + 1)
     ur = ul + 1
-    tris = np.concatenate([np.stack([ll, lr, ur], axis=1),
-                           np.stack([ll, ur, ul], axis=1)])
+    if diagonal == "right":
+        tris = np.concatenate([np.stack([ll, lr, ur], axis=1),
+                               np.stack([ll, ur, ul], axis=1)])
+    elif diagonal == "left":
+        tris = np.concatenate([np.stack([ll, lr, ul], axis=1),
+                               np.stack([lr, ur, ul], axis=1)])
+    elif diagonal == "crossed":
+        centres = 0.25 * (coords[ll] + coords[lr] + coords[ul] + coords[ur])
+        cc = coords.shape[0] + np.arange(nx * ny)
+        coords = np.concatenate([coords, centres])
+        tris = np.concatenate([np.stack([ll, lr, cc], axis=1),
+                               np.stack([lr, ur, cc], axis=1),
+                               np.stack([ur, ul, cc], axis=1),
+                               np.stack([ul, ll, cc], axis=1)])
+    else:
+        raise ValueError(f"diagonal '{diagonal}' not recognised; options: "
+                         "'right', 'left', 'crossed'")
     return Mesh(coords, tris.astype(np.int32))

@@ -24,7 +24,7 @@ the kernels the same way and keeps the same-node blocks.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.autograd.forward_ad as fwAD
@@ -53,21 +53,47 @@ def _jvp(kernel: Callable, batch, ctx, u_e: torch.Tensor,
 
 class StepOperators:
     """The system's operators at one attempted step, in one compute dtype:
-    residual, Jacobian action and node blocks as functions of delta."""
+    residual, Jacobian action and node blocks as functions of delta.
+
+    `aux` holds per-step auxiliary fields (the glow's coefficients): every
+    floating tensor is cast to the compute dtype, and each batch's kernel
+    context gathers the nodal ones (a tensor whose leading dim is n_dofs)
+    per element; other entries pass through (the JAX package's
+    `_cast_inputs` and `_make_ctx`)."""
 
     def __init__(self, system: "CoupledSystem", u_old: torch.Tensor,
-                 u_old1: torch.Tensor, params: StepParams, dtype):
+                 u_old1: torch.Tensor, params: StepParams, dtype,
+                 aux: Optional[Dict] = None):
         self.n_dofs, self.n_eq = system.n_dofs, system.n_eq
         self.dtype = dtype
         self.mask = system.bcs.mask
         self.batches = [(b.astype(dtype), k) for b, k in system._batches()]
         d_hist = (u_old - u_old1).to(dtype)
-        self.bc_shift = (u_old - system.bcs.values).to(dtype)
+        self.bc_shift = (u_old - system.bcs.values_at(params.t)).to(dtype)
         u_old_c = u_old.to(dtype)
         p = StepParams(*(torch.tensor(x, dtype=dtype, device=u_old.device)
                          for x in params))
-        self.ctxs = [{"u_old": b.gather(u_old_c), "d_hist": b.gather(d_hist),
-                      "params": p} for b, _ in self.batches]
+
+        def cast(v):
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                return v.to(dtype)
+            return v
+
+        aux_c = {k: cast(v) for k, v in (aux or {}).items()}
+
+        def ctx(b):
+            def maybe_gather(v):
+                if (isinstance(v, torch.Tensor) and v.dim() >= 1
+                        and v.shape[0] == self.n_dofs):
+                    return b.gather(v)
+                return v
+
+            c = {name: maybe_gather(v) for name, v in aux_c.items()}
+            c.update(u_old=b.gather(u_old_c), d_hist=b.gather(d_hist),
+                     params=p)
+            return c
+
+        self.ctxs = [ctx(b) for b, _ in self.batches]
 
     def _zeros(self, *trailing):
         return torch.zeros((self.n_dofs,) + trailing, dtype=self.dtype,
@@ -174,14 +200,15 @@ class CoupledSystem:
     def _hi_enabled(self) -> bool:
         return self.newton.hi_residual and self.dtype != torch.float64
 
-    def operators(self, u_old, u_old1, params: StepParams,
-                  dtype=None) -> StepOperators:
+    def operators(self, u_old, u_old1, params: StepParams, dtype=None,
+                  aux: Optional[Dict] = None) -> StepOperators:
         return StepOperators(self, u_old, u_old1, params,
-                             self.dtype if dtype is None else dtype)
+                             self.dtype if dtype is None else dtype, aux)
 
-    def residual(self, u, u_old, u_old1, params: StepParams, dtype=None):
+    def residual(self, u, u_old, u_old1, params: StepParams, dtype=None,
+                 aux: Optional[Dict] = None):
         """Residual at the absolute state `u` (diagnostics, tests)."""
-        ops = self.operators(u_old, u_old1, params, dtype)
+        ops = self.operators(u_old, u_old1, params, dtype, aux)
         return ops.residual((u - u_old).to(ops.dtype))
 
     def block_precond_builder(self, ops: StepOperators) -> Callable:
@@ -202,25 +229,26 @@ class CoupledSystem:
 
         return build
 
-    def guarded_block_count(self, u_old, u_old1, params: StepParams) -> int:
+    def guarded_block_count(self, u_old, u_old1, params: StepParams,
+                            aux: Optional[Dict] = None) -> int:
         """Diagnostic: how many node blocks at the state u_old (delta = 0)
         need the Jacobi fallback of `invert_blocks`. A handful is the
         expected underflow case; a systematic count is an assembly defect
         the fallback would otherwise hide."""
-        ops = self.operators(u_old, u_old1, params)
+        ops = self.operators(u_old, u_old1, params, aux=aux)
         delta = torch.zeros_like(u_old, dtype=ops.dtype)
         return invert_blocks(ops.jacobian_blocks(delta), with_count=True)[1]
 
-    def step(self, u_guess, u_old, u_old1, params: StepParams):
+    def step(self, u_guess, u_old, u_old1, aux: Dict, params: StepParams):
         """One attempted nonlinear solve at (t, dt): Newton from
         delta = u_guess - u_old. A `u_guess` that is another tensor than
         `u_old` is a predicted guess (see `newton_solve`). Returns
         (u_new, NewtonInfo)."""
-        ops = self.operators(u_old, u_old1, params)
+        ops = self.operators(u_old, u_old1, params, aux=aux)
         R_hi = None
         if self._hi_enabled():
-            R_hi = self.operators(u_old, u_old1, params,
-                                  torch.float64).residual
+            R_hi = self.operators(u_old, u_old1, params, torch.float64,
+                                  aux).residual
         delta = (u_guess - u_old).to(self.dtype)
         delta, info = newton_solve(ops.residual, ops.jacobian_action, delta,
                                    self.newton,

@@ -611,5 +611,5 @@ class StreamerModel:
         state = self.initial_state()
         while state.t < T * (1 - 1e-12) and state.n_accepted < max_steps:
             state.dt = min(state.dt, T - state.t)
-            state = driver.advance(state)
+            state = driver.advance(state, {})
         return state

@@ -20,12 +20,16 @@ stream, whichever device the calling thread had current.
 On a CUDA tensor each form launches the hand-written kernel
 `csrc/ell_scatter.cu` (built with nvcc at first use) or raises; on CPU
 tensors it computes its plain PyTorch version (`ell_scatter_ref`,
-`ell_scatter_add_ref`). `ell_scatter.launches` and
-`ell_scatter_add_.launches` count kernel launches of each form.
+`ell_scatter_add_ref`). `LAUNCHES` counts kernel launches by (wrapper,
+table, C, dtype), where the table is "dense" when it has a row for every
+destination (`ell_scatter`, or `ell_scatter_add_` with `rows=None`: the
+unstructured cell scatter) and "compact" when it lists live rows;
+`launch_count(wrapper)` sums it.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -34,6 +38,15 @@ import torch
 
 SOURCE = "ell_scatter.cu"
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# kernel launches by (wrapper, table, C, dtype); see the module docstring
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def launch_count(wrapper: str | None = None) -> int:
+    """Kernel launches counted in `LAUNCHES`: of one wrapper
+    ("ell_scatter" or "ell_scatter_add_"), or of both."""
+    return sum(n for key, n in LAUNCHES.items()
+               if wrapper is None or key[0] == wrapper)
 
 
 @functools.cache
@@ -121,7 +134,8 @@ def ell_scatter(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          n_rows, max_val, flat.shape[0],
                          math.prod(flat.shape[1:]), _stream(flat)),
                       "ell_scatter")
-        ell_scatter.launches += 1
+        LAUNCHES["ell_scatter", "dense", math.prod(flat.shape[1:]),
+                 _SUFFIX[flat.dtype]] += 1
     return out
 
 
@@ -158,7 +172,8 @@ def ell_scatter_add_(out: torch.Tensor, flat: torch.Tensor,
                          flat.data_ptr(), out.data_ptr(), n_rows, max_val,
                          flat.shape[0], math.prod(flat.shape[1:]),
                          _stream(flat)), "ell_scatter_add_")
-        ell_scatter_add_.launches += 1
+        LAUNCHES["ell_scatter_add_", "dense" if rows is None else "compact",
+                 math.prod(flat.shape[1:]), _SUFFIX[flat.dtype]] += 1
     return out
 
 
@@ -170,6 +185,3 @@ def ell_noop(n_rows: int, C: int, device="cuda") -> None:
                               torch.cuda.current_stream(device).cuda_stream),
               "ell_noop")
 
-
-ell_scatter.launches = 0
-ell_scatter_add_.launches = 0

@@ -1,0 +1,50 @@
+"""Chebyshev polynomial smoothing for the elliptic (Poisson) block (the JAX
+package's `solvers/chebyshev.py`): a fixed-degree polynomial in the
+Jacobi-scaled Laplacian, no data-dependent control flow, so the V-cycle it
+smooths stays a fixed linear operator."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+
+def power_iteration_lmax(matvec: Callable, n: int, iters: int = 50,
+                         seed: int = 0, device="cpu") -> float:
+    """Largest-eigenvalue estimate of a (scaled) SPD operator after a fixed
+    `iters` iterations, from the float64 start vector
+    `np.random.default_rng(seed).standard_normal(n)` of the JAX package
+    (its last bits set every smoother built on the estimate)."""
+    x = torch.as_tensor(np.random.default_rng(seed).standard_normal(n),
+                        dtype=torch.float64, device=device)
+    lam = 1.0
+    for _ in range(iters):
+        y = matvec(x)
+        lam = float(torch.linalg.vector_norm(y))
+        x = y / lam
+    return lam
+
+
+def chebyshev_solver(matvec: Callable, lmin: float, lmax: float,
+                     degree: int) -> Callable:
+    """z ~= A^-1 r by the Chebyshev iteration on the spectrum [lmin, lmax]
+    (the standard smoother recurrence, unrolled `degree` times); `matvec`
+    is the (Jacobi-scaled) operator the spectrum refers to."""
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma1 = theta / delta
+
+    def solve(r: torch.Tensor) -> torch.Tensor:
+        d = r / theta
+        z = d
+        rho_old = 1.0 / sigma1
+        for _ in range(degree - 1):
+            rho = 1.0 / (2.0 * sigma1 - rho_old)
+            d = rho * rho_old * d + (2.0 * rho / delta) * (r - matvec(z))
+            z = z + d
+            rho_old = rho
+        return z
+
+    return solve

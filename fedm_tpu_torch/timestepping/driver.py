@@ -33,7 +33,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -157,9 +157,13 @@ class AdaptiveDriver:
         with open(self.error_log, "a") as f:
             f.write(f"{err:<23}  {dt_old:<23}  {dt:<23}\n")
 
-    def advance(self, state: TimeState) -> TimeState:
+    def advance(self, state: TimeState,
+                aux: Optional[Dict] = None) -> TimeState:
         """One accepted BDF step, with as many rejected attempts as the
-        error control demands; rotates the history first."""
+        error control demands; rotates the history first. `aux`: the
+        step's auxiliary fields, handed to every attempt's kernels (the
+        glow's coefficients at the last accepted state); None is {}."""
+        aux = {} if aux is None else aux
         u_old1, u_old = state.u_old, state.u
         dt, dt_old = state.dt, state.dt_old
         n_rejected = state.n_rejected
@@ -190,7 +194,7 @@ class AdaptiveDriver:
                                       if self._res_floor < float("inf")
                                       else 0.0)
             t0 = time.perf_counter()
-            u_new, info = solve_sys.step(u_guess, u_old, u_old1, params)
+            u_new, info = solve_sys.step(u_guess, u_old, u_old1, aux, params)
             if self.verbose:
                 print(f"  newton: {_info_line(info)} "
                       f"[{time.perf_counter() - t0:.1f}s]", flush=True)
@@ -200,7 +204,7 @@ class AdaptiveDriver:
                     print(f"Escalating precision for t = {t_try}",
                           flush=True)
                 u_new, info = self.fallback_system.step(u_old, u_old, u_old1,
-                                                        params)
+                                                        aux, params)
                 self.n_escalated += 1
                 if self.verbose:
                     print(f"  newton(f64): {_info_line(info)}", flush=True)

@@ -18,7 +18,7 @@ from fedm_tpu_torch.model.system import StepParams
 from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel
 from fedm_tpu_torch.ops.ell_scatter import (ell_scatter, ell_scatter_add_,
                                             ell_scatter_add_ref,
-                                            ell_scatter_ref)
+                                            ell_scatter_ref, launch_count)
 from fedm_tpu_torch.solvers.newton import NewtonConfig
 
 pytestmark = pytest.mark.gpu
@@ -62,10 +62,10 @@ def test_ell_scatter_kernel_matches_plain(cuda, C, dtype):
     flat, idx = _ell_case(C)
     f = torch.as_tensor(flat, dtype=dtype, device=cuda)
     i = torch.as_tensor(idx, dtype=torch.int32, device=cuda)
-    before = ell_scatter.launches
+    before = launch_count("ell_scatter")
     out = ell_scatter(f, i)
     torch.cuda.synchronize()
-    assert ell_scatter.launches == before + 1
+    assert launch_count("ell_scatter") == before + 1
     ref = ell_scatter_ref(f, i)
     # float64: exact up to summation order; float32: rtol 1e-6
     rtol = 1e-13 if dtype == torch.float64 else 1e-6
@@ -118,12 +118,13 @@ def test_ell_scatter_add_kernel_matches_plain(cuda, max_val, C, dtype,
     f = torch.as_tensor(flat, dtype=dtype, device=cuda)
     o = torch.as_tensor(out, dtype=dtype, device=cuda)
     o0 = o.clone()
-    before, dense_before = ell_scatter_add_.launches, ell_scatter.launches
+    before = launch_count("ell_scatter_add_")
+    dense_before = launch_count("ell_scatter")
     got = ell_scatter_add_(o, f, i, r)
     torch.cuda.synchronize()
     assert got is o
-    assert ell_scatter_add_.launches == before + (n_live != 0)
-    assert ell_scatter.launches == dense_before
+    assert launch_count("ell_scatter_add_") == before + (n_live != 0)
+    assert launch_count("ell_scatter") == dense_before
     ref = ell_scatter_add_ref(o0.clone(), f, i, r)
     rtol = 1e-13 if dtype == torch.float64 else 1e-6
     np.testing.assert_allclose(o.cpu().numpy(), ref.cpu().numpy(), rtol=rtol,
@@ -204,12 +205,13 @@ def test_main_path_small_on_cuda(cuda):
         assert np.abs(Fg[:, k] - Fc[:, k]).max() <= 1e-12 * np.abs(
             Fc[:, k]).max()
 
-    before, dense_before = ell_scatter_add_.launches, ell_scatter.launches
+    before = launch_count("ell_scatter_add_")
+    dense_before = launch_count("ell_scatter")
     sg = gpu.make_driver().advance(sg)
     sc = cpu.make_driver().advance(sc)
     # the residual accumulates the facet terms with the compact form only
-    assert ell_scatter_add_.launches > before
-    assert ell_scatter.launches == dense_before
+    assert launch_count("ell_scatter_add_") > before
+    assert launch_count("ell_scatter") == dense_before
     assert sg.n_accepted == sc.n_accepted == 1
     assert sg.t == sc.t == 1e-12
     assert all(bool(torch.isfinite(x).all()) for x in (sg.u, sg.u_old))
@@ -278,7 +280,7 @@ def test_initial_state_and_move_window_on_cuda(cuda):
 
     close(sg.u, sc.u)
     corr = (7.9e-3, 9.4e-3, 5e-5)
-    before = ell_scatter_add_.launches
+    before = launch_count("ell_scatter_add_")
     sg, sc = gpu.move_window(corr, sg), cpu.move_window(corr, sc)
     close(sg.u, sc.u)
     np.testing.assert_array_equal(gpu.mesh.coords, cpu.mesh.coords)
@@ -290,4 +292,101 @@ def test_initial_state_and_move_window_on_cuda(cuda):
     Fg = gpu.system.residual(u.to(cuda), sc.u.to(cuda), sc.u_old.to(cuda), p)
     Fc = cpu.system.residual(u, sc.u, sc.u_old, p)
     close(Fg, Fc)
-    assert ell_scatter_add_.launches > before
+    assert launch_count("ell_scatter_add_") > before
+
+
+def _glow_table():
+    """The glow's cell ELL table: the crossed 64 x 64 mesh (8,321 rows x 8
+    slots), and its cells' destination dofs."""
+    from fedm_tpu_torch.fem.assembly import build_ell_index
+    from fedm_tpu_torch.mesh import rectangle_mesh
+
+    mesh = rectangle_mesh((0, 0), (0.01, 0.01), 64, 64, "crossed")
+    return build_ell_index(mesh.cells, mesh.n_verts), mesh.cells.size
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [1, 5, 25])
+def test_ell_dense_kernel_at_the_glow_shapes(cuda, C, dtype):
+    """Both calls the glow makes on its cell table: `ell_scatter` (project,
+    C = 1) and `ell_scatter_add_` with rows=None (residual and J v, C = 5;
+    node blocks, C = 25), against their plain versions."""
+    idx_np, n_flat = _glow_table()
+    assert idx_np.shape == (8321, 8)
+    flat = torch.as_tensor(np.random.default_rng(C).standard_normal(
+        (n_flat, C)), dtype=dtype)
+    idx = torch.as_tensor(idx_np)
+    out0 = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (8321, C)), dtype=dtype)
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    ref = ell_scatter_ref(flat, idx)
+    got = ell_scatter(flat.to(cuda), idx.to(cuda)).cpu()
+    torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+    ref_add = ell_scatter_add_ref(out0.clone(), flat, idx)
+    got_add = ell_scatter_add_(out0.to(cuda), flat.to(cuda), idx.to(cuda))
+    torch.testing.assert_close(got_add.cpu(), ref_add, rtol=tol, atol=tol)
+
+
+def _glow_model(device, tree, dtype=torch.float64):
+    from fedm_tpu_torch.models.glow import GlowConfig, GlowDischargeModel
+
+    model = GlowDischargeModel(GlowConfig(file_input=tree, nx=16, ny=16,
+                                          dtype=dtype), device=device)
+    model.system.use_gather_scatter()
+    return model
+
+
+def test_glow_residual_on_cuda(cuda, tmp_path):
+    """The glow's float64 residual (cell scatter through K1's dense form)
+    and its Jacobian action on the card against the same model on the CPU,
+    at a seeded state with its own coefficients."""
+    from fedm_tpu_torch.models.argon_synth import generate_argon_input
+
+    generate_argon_input(tmp_path)
+    cpu, gpu = _glow_model("cpu", tmp_path), _glow_model(cuda, tmp_path)
+    s = cpu.initial_state()
+    rng = np.random.default_rng(0)
+    noise = torch.as_tensor(rng.standard_normal(tuple(s.u.shape))
+                            * np.array([1e-2, 1e-2, 1e-2, 1e-2, 1.0]))
+    u_old = s.u + noise
+    u = u_old + 0.1 * noise
+    p = StepParams(2e-12, 1e-12, 8e-13)
+    launches = launch_count("ell_scatter_add_")
+    Fg = gpu.system.residual(u.to(cuda), u_old.to(cuda), u_old.to(cuda), p,
+                             aux=gpu._update_aux(u_old.to(cuda)))
+    Fc = cpu.system.residual(u, u_old, u_old, p, aux=cpu._update_aux(u_old))
+    assert launch_count("ell_scatter_add_") > launches
+    for k in range(5):
+        scale = float(Fc[:, k].abs().max())
+        assert float((Fg[:, k].cpu() - Fc[:, k]).abs().max()) <= \
+            1e-12 * scale, k
+    v = torch.as_tensor(rng.standard_normal(tuple(u.shape)))
+    ops_c = cpu.system.operators(u_old, u_old, p,
+                                 aux=cpu._update_aux(u_old))
+    ops_g = gpu.system.operators(u_old.to(cuda), u_old.to(cuda), p,
+                                 aux=gpu._update_aux(u_old.to(cuda)))
+    Jc = ops_c.jacobian_action(u - u_old)(v)
+    Jg = ops_g.jacobian_action((u - u_old).to(cuda))(v.to(cuda)).cpu()
+    for k in range(5):
+        assert float((Jg[:, k] - Jc[:, k]).abs().max()) <= \
+            1e-12 * float(Jc[:, k].abs().max()), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_invert_blocks_5x5_on_cuda(cuda, dtype):
+    """The glow's 5 x 5 node blocks (Gauss-Jordan with partial pivoting)
+    on the card against the CPU; blocks with rows of very different scales
+    and one structurally singular block (the Jacobi fallback)."""
+    from fedm_tpu_torch.solvers.precond import invert_blocks
+
+    rng = np.random.default_rng(5)
+    A = rng.standard_normal((8321, 5, 5)) + 10.0 * np.eye(5)
+    A *= 10.0 ** rng.uniform(-20, 20, (8321, 5, 1))
+    A[7, :, 4] = 0.0
+    A = torch.as_tensor(A, dtype=dtype)
+    got, n_got = invert_blocks(A.to(cuda), with_count=True)
+    ref, n_ref = invert_blocks(A, with_count=True)
+    assert n_got == n_ref == 1
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    scale = ref.abs().amax(dim=(1, 2), keepdim=True)
+    assert float(((got.cpu() - ref).abs() / scale).max()) <= tol

@@ -17,10 +17,13 @@ from fedm_tpu.ops.exprs import ExpressionError as JaxExpressionError
 from fedm_tpu.ops.exprs import compile_expression as jax_compile
 from fedm_tpu_torch import convert
 from fedm_tpu_torch.fem import BCSet, CellBatch, FacetBatch
+from fedm_tpu_torch.fem.interpolation import p1_transfer
 from fedm_tpu_torch.io import load_checkpoint
+from fedm_tpu_torch.models.generic import PlasmaModel
 from fedm_tpu_torch.models.streamer import (ALPHA_EXPR, D_E_EXPR, MU_E_EXPR,
                                             StreamerModel)
 from fedm_tpu_torch.ops.exprs import ExpressionError, compile_expression
+from fedm_tpu_torch.solvers.multigrid import GeometricMultigrid
 from fedm_tpu_torch.solvers.structured_mg import StructuredPoissonMG
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -51,17 +54,20 @@ def test_port_source_list_is_complete():
 
 
 @pytest.mark.parametrize("entry", [StreamerModel.__init__, load_checkpoint,
-                                   convert.state_from_arrays])
+                                   convert.state_from_arrays,
+                                   PlasmaModel.__init__])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
 @pytest.mark.parametrize("cls", [CellBatch, FacetBatch, BCSet,
-                                 StructuredPoissonMG],
+                                 StructuredPoissonMG, GeometricMultigrid,
+                                 p1_transfer],
                          ids=lambda c: c.__name__)
 def test_building_blocks_take_the_device_from_the_caller(cls):
     """No default: the device reaches them only from an entry point."""
-    param = inspect.signature(cls.__init__).parameters["device"]
+    fn = cls.__init__ if inspect.isclass(cls) else cls
+    param = inspect.signature(fn).parameters["device"]
     assert param.kind is inspect.Parameter.KEYWORD_ONLY
     assert param.default is inspect.Parameter.empty
 

@@ -184,7 +184,7 @@ def port_advances(model, s, n: int, origin: str, first: int = 1) -> None:
         for k in range(n):
             counts.clear()
             t0 = time.perf_counter()
-            s = driver.advance(s)
+            s = driver.advance(s, {})
             print(json.dumps(advance_record("port", origin, first + k, s,
                                             counts, t0)), flush=True)
 

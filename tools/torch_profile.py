@@ -1,0 +1,179 @@
+"""Where the time of the PyTorch port's adaptive advances goes, on the GPU.
+One of three paths is set up, `--warmup` advances are run, and
+`--advances` more are profiled under `torch.profiler`, one at a time:
+
+- `restart`: the bench configuration (`bench.py:_stiff_bench`) restarted
+  from bench_assets/bagheri_dz1e-5_ckpt.npz (484,155 unknowns);
+- `window`: the Bagheri streamer at the `bagheri14` protocol of
+  `python -m fedm_tpu_torch.bagheri_run` (30,305 dofs, the window at the
+  seed) from t = 0, with the initial state (the Poisson solve) and one
+  `move_window` timed first;
+- `glow`: the argon glow discharge at the `glow50` protocol of
+  `python -m fedm_tpu_torch.glow_run` (crossed 64 x 64 mesh, 41,605
+  unknowns, the synthetic argon tree in a temporary directory) from t = 0,
+  each advance with its per-advance coefficient update.
+
+Prints the card's name and power limit, then per profiled advance its
+wall time, the device-busy time (the union of kernel intervals), the idle
+share, the kernel count, K1's launches by wrapper, table and width and
+its device time, then the kernels and operators that take the most
+device time.
+
+    python tools/torch_profile.py --path {restart,window,glow}
+        [--warmup N] [--advances 1] [--top 25]
+"""
+
+import argparse
+import collections
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from fedm_tpu_torch.ops import ell_scatter as k1  # noqa: E402
+
+# the window's third advance is a long Krylov solve (hundreds of BiCGStab
+# and GMRES iterations): under the profiler it takes more than 6 minutes
+WARMUP = {"restart": 1, "window": 0, "glow": 3}
+
+
+def busy_us(events) -> float:
+    """Length of the union of the device kernels' [start, end) intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def restart(tmp):
+    """(state, advance): `advance(state)` takes one adaptive advance."""
+    from fedm_tpu_torch.io import load_checkpoint
+    from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel
+    from fedm_tpu_torch.solvers.newton import NewtonConfig
+
+    nc = NewtonConfig(rtol=1e-3, max_iter=20, linear_tol=3e-2,
+                      linear_maxiter=400, accept_reduction=3e-2,
+                      hi_residual=True)
+    cfg = StreamerConfig(dtype=torch.float32, newton=nc,
+                         z_corridor=(0.0, 1.08e-2, 1e-5),
+                         density_floor=1e13, r_corridor=(2e-3, 2e-5))
+    model = StreamerModel(cfg, device="cuda")
+    model.system.use_gather_scatter()
+    state = load_checkpoint(ROOT / "bench_assets" / "bagheri_dz1e-5_ckpt.npz",
+                            device="cuda")
+    driver = model.make_driver(verbose=True)
+    print(f"{model.space.n_dofs} dofs")
+    return state, lambda s: driver.advance(s, {})
+
+
+def window(tmp):
+    from fedm_tpu_torch.bagheri_run import (build_driver, build_models,
+                                            parse_args, window_corr)
+
+    args = parse_args(["--preset", "bagheri14", "--no-direct-rescue",
+                       "--out", tmp])
+    model, fallback = build_models(
+        args, window_corr(1e-2, args.window_span, args.window_dz))
+    print(f"{model.space.n_dofs} dofs")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state = model.initial_state()
+    torch.cuda.synchronize()
+    print(f"initial state {time.perf_counter() - t:.3f} s (Poisson CG "
+          f"{model.initial_poisson[1]} iterations, relres "
+          f"{model.initial_poisson[0]:.2e})")
+    t = time.perf_counter()
+    state = model.move_window(
+        window_corr(9.9e-3, args.window_span, args.window_dz), state)
+    torch.cuda.synchronize()
+    print(f"move_window {time.perf_counter() - t:.3f} s")
+    driver = build_driver(args, model, fallback)
+    return state, lambda s: driver.advance(s, {})
+
+
+def glow(tmp):
+    from fedm_tpu_torch.glow_run import build_driver, build_models, parse_args
+
+    args = parse_args(["--preset", "glow50", "--out", tmp])
+    model, fallback = build_models(args)
+    driver = build_driver(args, model, fallback)
+    print(f"{model.space.n_dofs} dofs, {model.n_eq * model.space.n_dofs} "
+          f"unknowns")
+    return (model.initial_state(),
+            lambda s: driver.advance(s, model._update_aux(s.u)))
+
+
+PATHS = {"restart": restart, "window": window, "glow": glow}
+
+
+def main():
+    ap = argparse.ArgumentParser(
+        description="Profile adaptive advances of one of the port's paths "
+                    "on the GPU.")
+    ap.add_argument("--path", choices=sorted(PATHS), required=True)
+    ap.add_argument("--warmup", type=int, default=None,
+                    help="advances before the profiled ones (default: "
+                         + ", ".join(f"{k} {v}" for k, v in WARMUP.items())
+                         + ")")
+    ap.add_argument("--advances", type=int, default=1)
+    ap.add_argument("--top", type=int, default=25)
+    opts = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(f"card: {card}; path {opts.path}")
+    warmup = WARMUP[opts.path] if opts.warmup is None else opts.warmup
+    with tempfile.TemporaryDirectory() as tmp:
+        state, advance = PATHS[opts.path](tmp)
+        for _ in range(warmup):
+            state = advance(state)
+        torch.cuda.synchronize()
+        for _ in range(opts.advances):
+            k1.LAUNCHES.clear()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                acc, rej = state.n_accepted, state.n_rejected
+                state = advance(state)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            kernels = [e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = busy_us(kernels) * 1e-6
+            k1_events = [e for e in kernels if "ell_scatter" in e.name]
+            k1_s = sum(e.time_range.end - e.time_range.start
+                       for e in k1_events) * 1e-6
+            shapes = collections.Counter()
+            for (wrapper, table, C, dt), n in k1.LAUNCHES.items():
+                shapes[f"{wrapper} {table} C={C} {dt}"] += n
+            print(f"advance to t = {state.t:.4e}: wall {wall:.3f} s, device "
+                  f"busy {busy:.3f} s, idle share {1 - busy / wall:.1%}, "
+                  f"{len(kernels)} device kernels, accepted "
+                  f"{state.n_accepted - acc}, rejected "
+                  f"{state.n_rejected - rej}; K1 launches "
+                  f"{dict(sorted(shapes.items()))}, {len(k1_events)} K1 "
+                  f"kernels in the trace, {k1_s * 1e6:.1f} us of device time "
+                  f"({k1_s / max(busy, 1e-12):.2e} of the busy time)")
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                     row_limit=opts.top))
+
+
+if __name__ == "__main__":
+    main()
