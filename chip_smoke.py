@@ -1,6 +1,8 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version, and drives the port's
-main path — the Bagheri streamer restart that `bench.py` times — at full size.
+paths at full size: the Bagheri streamer restart that `bench.py` times, the
+streamer from t = 0 on its moving window with the direct rescue, the argon
+glow, and the streamer's option paths.
 
     python3 chip_smoke.py
 
@@ -39,7 +41,26 @@ Phases (each reports its elapsed seconds on stderr):
      refuse the residual evaluated in float32; K1 inside the probe
      residual against the plain scatter; then 10 adaptive advances with
      K1's launch counter reset just before and read just after, which must
-     show launches of K1's dense form (the unstructured cell scatter).
+     show launches of K1's dense form (the unstructured cell scatter);
+  4b. rescue: the host sparse-direct Newton on phase 4's moved state (the
+     window phase runs the preset as written, with this rescue as its
+     fallback): the colour and node-pair counts of the JAX package, the
+     probed Jacobian times three seeded vectors against the matrix-free
+     J v (a distance-1 colouring must fail it), then one advance whose
+     primary Newton cannot converge, escalated to `DirectNewton`, its
+     residual norm per direct iteration and its increments held to the
+     JAX package's numbers (tools/port_reference_options.py), each
+     tolerance shown to refuse the same advance with the line search on
+     the float32 residual; K1's launches counted around the advance;
+  6. options: the JAX package's default StreamerConfig (graded 80 x 160,
+     13,041 dofs, float64, poisson_precond "mg") built through
+     `from_file_input` on a reference-format tree written to a temporary
+     directory, its expressions and initial residual against the built-in
+     model's, M r of "mg", "zline" and the transport z-lines on
+     "mg-zline" and the row weights held to the JAX numbers (refusing a
+     float32 model's M r), and one advance of each of "mg", "zline",
+     transport_zline and float32 row_scaled, held to the JAX package's
+     outcome, counts, dt and step error.
 Phase 2 also holds and times K1 at the glow's shapes: the dense cell table
 of the crossed 64 x 64 mesh (8,321 rows x 8 slots) at C = 1 (`project`),
 5 (residual and Jacobian action, float32 and the float64 defect) and 25
@@ -162,6 +183,93 @@ GLOW_INITIAL_RESIDUAL_RTOL = (5e-13, 2e-15, 4e-15, 1e-13, 1e-15)
 GLOW_AUX_RTOL = {"redE": 1e-7, "k": 1e-14, "mu": 1e-8, "D": 1e-8}
 GLOW_PROBE_RESIDUAL_RTOL = (1e-12, 1e-15, 1e-8, 1e-11, 1e-15)
 N_GLOW_ADVANCES = 10
+# The rescue's and the options' reference numbers, computed with the JAX
+# package on the CPU by:  JAX_PLATFORMS=cpu python
+# tools/port_reference_options.py (see its docstring for what each is)
+REF_RESCUE = {
+    "n_colors": 9, "n_pairs": 210721, "escalated": 1, "rejected": 0,
+    "factorizations": 2,
+    "direct_history": [[209809853556865.5, 245675098766.22217,
+                        2158155103.3290367]],
+    "increment_norms": (0.009456056140778737, 3.865517380894817,
+                        262.27145826290126)}
+REF_OPTION_ADVANCES = {
+    "mg": {"accepted": 1, "rejected": 0, "dt": 5e-12,
+           "error": 0.00027784198096289704,
+           "iterations": {"newton_iteration": 3, "bicgstab": 18},
+           "spread": {"newton_iteration": (3, 3), "bicgstab": (18, 18)}},
+    "zline": {"accepted": 1, "rejected": 0, "dt": 5e-12,
+              "error": 0.00027784198099656683,
+              "iterations": {"newton_iteration": 3, "bicgstab": 133},
+              "spread": {"newton_iteration": (3, 3),
+                         "bicgstab": (133, 136)}},
+    "tzline": {"accepted": 1, "rejected": 0, "dt": 5e-12,
+               "error": 0.00027784198099567486,
+               "iterations": {"newton_iteration": 3, "bicgstab": 49},
+               "spread": {"newton_iteration": (3, 3),
+                          "bicgstab": (39, 49)}},
+    "row_scaled_f32": {"accepted": 1, "rejected": 0, "dt": 5e-12,
+                       "error": 0.00027790645877635167,
+                       "iterations": {"newton_iteration": 11,
+                                      "bicgstab": 70}}}
+REF_OPTIONS = {
+    "n_dofs": 13041,
+    "precond": {
+        "mg": {"norms": [0.014960585488022185, 33.19700431952437,
+                         86281.43131002354],
+               "dots": [0.008116856275229838, 8.040835773303204,
+                        19562.882212355573]},
+        "zline": {"norms": [0.014960585290054475, 33.19700431546041,
+                            43808.16812107061],
+                  "dots": [0.008116856143124579, 8.040835768413801,
+                           38383.4971034365]},
+        "tzline": {"norms": [0.014960585455826661, 7.210195171860641e-11,
+                             81750.56457387474],
+                   "dots": [0.008116856253118622, 5.093853803264921e-12,
+                            15786.68539670464]}},
+    "row_weights": {"norms": [1.7788026911929446e-11, 2.56001126246306e-11,
+                              15604.834931334768],
+                    "dots": [1.2716424203630859e-11,
+                             -1.5626822962365693e-11, 21450.001737179697]},
+    "advance": REF_OPTION_ADVANCES}
+# Relative tolerances of the rescue, each a few times the port's gap on the
+# CPU (tools/port_reference_options.py --port), each refusing the control
+# (the direct steps with the line search on the float32 residual instead
+# of the float64 defect). Per position: the gap, the limit, the control.
+#   direct ||F||, start and after iterations 1, 2:
+#     CPU 2.4e-9 9.0e-8 4.5e-7; H100 2.5e-9 4.0e-7 1.7e-7; limit 1e-8 2e-6
+#     3e-6; control 1.3e-6 6.6e-2 46.6
+#   per-equation ||u_new - u_old||:
+#     CPU 4.6e-10 2.0e-9 1.9e-6; H100 6.5e-11 1.8e-9 1.2e-6; limit 5e-9
+#     2e-8 1e-5; control 9.9e-7 1.1e-6 6.0e-4
+# and the probed Jacobian's J v against the matrix-free one (float32
+# rounding, CPU 6.9e-8 to 7.2e-8; a distance-1 colouring 0.37).
+RESCUE_HISTORY_RTOL = (1e-8, 2e-6, 3e-6)
+RESCUE_INCREMENT_RTOL = (5e-9, 2e-8, 1e-5)
+RESCUE_JV_RTOL = 1e-5
+# The options' tolerances: M r and the row weights (per-column norms and
+# dots) to 1e-10 relative (CPU at most 5.6e-12), refusing M r of the
+# float32 model (CPU 5e-9 and above); dt and the accepted step's error to
+# 1e-11 in float64 (CPU at most 4.3e-13, H100 1.0e-13) and 1e-3 for the
+# float32 row-scaled advance (CPU and H100 2.3e-4). In float64 the Newton
+# and BiCGStab counts must lie in the range the JAX package's own counts
+# take over six seeded 1e-12 perturbations of the state (`spread`): "mg"
+# 18 only, "zline" 133-136, "tzline" 39-49 (the port: CPU 41, H100 41).
+# In float32 the counts are reported, not held: the JAX package's own
+# range under 1e-7 perturbations, 10-13 Newton and 61-74 BiCGStab, did
+# not hold the H100's 13 and 84, at the same step error.
+OPTIONS_PRECOND_RTOL = 1e-10
+OPTIONS_STEP_RTOL = (1e-11, 1e-3)
+# the options phase's configurations (StreamerConfig overrides of the JAX
+# default, built through from_file_input)
+OPTION_CONFIGS = {"mg": {}, "zline": {"poisson_precond": "zline"},
+                  "tzline": {"poisson_precond": "mg-zline",
+                             "transport_zline": True},
+                  "row_scaled_f32": {"row_scaled": True,
+                                     "dtype": torch.float32}}
+# the rescue's primary Newton, too weak to converge
+RESCUE_WEAK = dict(max_iter=1, linear_maxiter=1, rtol=1e-10,
+                   accept_reduction=0.0, max_stalls=1)
 T0 = time.perf_counter()
 _phase = "start"
 
@@ -390,8 +498,8 @@ def fresh_window(k1, card) -> dict:
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        args = parse_args(["--preset", "bagheri14", "--no-direct-rescue",
-                           "--out", tmp])
+        # the preset as written: its direct rescue is the fallback
+        args = parse_args(["--preset", "bagheri14", "--out", tmp])
         span, dz = args.window_span, args.window_dz
         corridor = window_corr(1e-2, span, dz)
         check(np.allclose(corridor, REF_WINDOW["corridor"], rtol=1e-15,
@@ -458,8 +566,11 @@ def fresh_window(k1, card) -> dict:
         check(torch.equal(F, F_plain), "K1 on the moved facets differs from "
                                        "its plain version")
         log("moved residual with K1 equals the plain version's exactly")
+        moved = state
 
         driver = build_driver(args, model, fallback)
+        check(type(driver.fallback_system).__name__ == "DirectNewton",
+              "the bagheri14 window runs without its direct rescue")
         acc0, rej0 = state.n_accepted, state.n_rejected
         # Newton iterations (a rescued one counts twice) and Krylov
         # iterations per advance, counted around the solver's calls
@@ -488,6 +599,9 @@ def fresh_window(k1, card) -> dict:
                 "accepted": accepted,
                 "rejected": state.n_rejected - rej0,
                 "stall_accepted": driver.n_stall_accepted,
+                "escalated_to_direct": driver.n_escalated,
+                "direct_factorizations":
+                    driver.fallback_system.n_factorizations,
                 "launches": launches,
                 "k1_launches_per_advance":
                     launches["ell_scatter_add_"] / N_WINDOW_ADVANCES,
@@ -501,8 +615,349 @@ def fresh_window(k1, card) -> dict:
     check(launches["ell_scatter"] == 0,
           "the window path launched K1's dense form")
     log(f"window: accepted {accepted}, rejected {out['rejected']}, median "
-        f"{out['median_advance_s']:.3f} s/advance, K1 launches {launches} "
+        f"{out['median_advance_s']:.3f} s/advance, escalated to the direct "
+        f"rescue {driver.n_escalated}, K1 launches {launches} "
         f"({out['k1_launches_per_advance']:.1f} per advance); {card}")
+    return out, model, moved
+
+
+def distance1_coloring(mm, nn, n_dofs):
+    """Greedy colouring in which only adjacent nodes differ: too weak for
+    column probing (the control of the rescue's check (b))."""
+    import numpy as np
+
+    order = np.argsort(mm, kind="stable")
+    nn_s = nn[order]
+    starts = np.searchsorted(mm[order], np.arange(n_dofs + 1))
+    colors = np.full(n_dofs, -1, dtype=np.int64)
+    for v in range(n_dofs):
+        taken = {colors[u] for u in nn_s[starts[v]:starts[v + 1]]}
+        c = 0
+        while c in taken:
+            c += 1
+        colors[v] = c
+    return colors
+
+
+def rescue(k1, card, model, moved) -> dict:
+    """Phase rescue: the host sparse-direct Newton on the fresh window's
+    moved state (tools/port_reference_options.py)."""
+    import dataclasses
+
+    import numpy as np
+
+    from fedm_tpu_torch.model.system import StepParams
+    from fedm_tpu_torch.solvers.direct import (DirectNewton,
+                                               build_adjacency_pairs)
+    from fedm_tpu_torch.timestepping import AdaptiveDriver
+
+    ref = REF_RESCUE
+    out = {}
+    sys_ = model.system
+    n_dofs = sys_.n_dofs
+    # (a) the colouring and the sparsity pattern
+    dn = DirectNewton(sys_, rtol=1e-3)
+    out.update(n_colors=dn.n_colors, n_pairs=dn.n_pairs,
+               probes_per_factorization=dn.n_colors * sys_.n_eq)
+    log(f"rescue: {dn.n_colors} colours, {dn.n_pairs} node pairs "
+        f"(JAX {ref['n_colors']}, {ref['n_pairs']})")
+    check((dn.n_colors, dn.n_pairs) == (ref["n_colors"], ref["n_pairs"]),
+          "the colouring or the node pairs differ from the JAX package's")
+
+    # (b) the probed Jacobian against the matrix-free J v
+    params = StepParams(moved.t + moved.dt, moved.dt, moved.dt_old)
+    ops = sys_.operators(moved.u, moved.u_old1, params)
+    delta = torch.zeros((n_dofs, sys_.n_eq), dtype=sys_.dtype,
+                        device=moved.u.device)
+    jvp = ops.jacobian_action(delta)
+    mm, nn = build_adjacency_pairs(sys_.cell_batch.dofs_np, n_dofs)
+    weak_dn = DirectNewton(sys_)
+    weak_dn.prepare(colors=distance1_coloring(mm, nn, n_dofs))
+    gen = torch.Generator().manual_seed(0)
+    vs = [torch.randn((n_dofs, sys_.n_eq), generator=gen) for _ in range(3)]
+    mf = [jvp(v.to(moved.u.device)).double().cpu().numpy().reshape(-1)
+          for v in vs]
+
+    def gaps(J):
+        return [float(np.linalg.norm(J @ v.double().numpy().reshape(-1) - y)
+                      / np.linalg.norm(y)) for v, y in zip(vs, mf)]
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    J = dn.assemble(ops, delta)
+    out["assemble_s"] = time.perf_counter() - t
+    out["jv_rel"] = gaps(J)
+    out["jv_rel_distance1_control"] = gaps(weak_dn.assemble(ops, delta))
+    log(f"probed J v vs matrix-free: {out['jv_rel']} (limit "
+        f"{RESCUE_JV_RTOL:g}); distance-1 control "
+        f"{out['jv_rel_distance1_control']} ({weak_dn.n_colors} colours); "
+        f"assembly {out['assemble_s']:.2f} s, nnz {J.nnz}")
+    check(max(out["jv_rel"]) <= RESCUE_JV_RTOL,
+          "the probed Jacobian disagrees with the matrix-free J v")
+    check(min(out["jv_rel_distance1_control"]) > RESCUE_JV_RTOL,
+          "a distance-1 colouring passes the J v check: it cannot tell a "
+          "wrong colouring")
+
+    # (c) one advance whose primary Newton cannot converge
+    base = sys_.newton
+
+    def weak_advance(hi_residual: bool):
+        sys_.newton = dataclasses.replace(base, **RESCUE_WEAK,
+                                          hi_residual=hi_residual)
+        fallback = DirectNewton(sys_, rtol=1e-3)
+        histories = []
+        step = fallback.step
+
+        def recorded(*a):
+            res = step(*a)
+            histories.append(list(fallback.history))
+            return res
+
+        fallback.step = recorded
+        cfg = model.cfg
+        driver = AdaptiveDriver(
+            sys_, monitor_idx=1, ttol=cfg.ttol, dt_min=cfg.dt_min,
+            dt_max=cfg.dt_max, post_accept=model.floor_projection(),
+            fail_dt_cap=0.7, predictor=1.0, fallback_system=fallback)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s1 = driver.advance(moved)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        du = (s1.u - moved.u).cpu().numpy()
+        return s1, driver, fallback, histories, wall, [
+            float(np.linalg.norm(du[:, k])) for k in range(du.shape[1])]
+
+    try:
+        k1.LAUNCHES.clear()
+        s1, driver, fb, histories, wall, inc = weak_advance(True)
+        launches = k1_launches(k1)
+        ctl = weak_advance(False)
+    finally:
+        sys_.newton = base
+    flat = [f for h in histories for f in h]
+    ref_flat = [f for h in ref["direct_history"] for f in h]
+    out.update({
+        "advance_s": wall, "accepted": s1.n_accepted - moved.n_accepted,
+        "rejected": s1.n_rejected - moved.n_rejected,
+        "escalated": driver.n_escalated,
+        "factorizations": fb.n_factorizations, "probes": fb.n_probes,
+        "probe_s": fb.probe_s, "splu_s": fb.factor_s, "nnz": fb.nnz,
+        "direct_history": histories, "increment_norms": inc,
+        "launches": launches, "t": s1.t, "dt": s1.dt, "card": card})
+    log(f"rescue advance {wall:.2f} s: accepted {out['accepted']}, "
+        f"rejected {out['rejected']}, escalated {driver.n_escalated}, "
+        f"{fb.n_factorizations} factorizations x "
+        f"{out['probes_per_factorization']} probes, probing "
+        f"{fb.probe_s:.2f} s, splu {fb.factor_s:.2f} s, nnz {fb.nnz}, "
+        f"K1 launches {launches}")
+    check(out["accepted"] == 1, "the rescued advance was not accepted")
+    check(driver.n_escalated >= 1, "the advance never escalated")
+    check((driver.n_escalated, out["rejected"], fb.n_factorizations,
+           [len(h) for h in histories]) == (
+        ref["escalated"], ref["rejected"], ref["factorizations"],
+        [len(h) for h in ref["direct_history"]]),
+        "escalations, rejections, factorizations or direct iterations "
+        "differ from the JAX package's")
+    tols = [RESCUE_HISTORY_RTOL[min(i, len(RESCUE_HISTORY_RTOL) - 1)]
+            for h in ref["direct_history"] for i in range(len(h))]
+    out["history_rel"] = held_to("direct ||F|| per iteration", flat,
+                                 ref_flat, tols)
+    out["increment_rel"] = held_to("per-equation ||u_new - u_old||", inc,
+                                   ref["increment_norms"],
+                                   RESCUE_INCREMENT_RTOL)
+    check(launches["ell_scatter_add_"] > 0,
+          "the rescue never launched K1's compact form")
+    # the control: the line search on the float32 residual
+    c_flat = [f for h in ctl[3] for f in h]
+    c_rel = _rel(c_flat[:len(ref_flat)], ref_flat) if len(
+        c_flat) >= len(ref_flat) else None
+    c_inc = _rel(ctl[5], ref["increment_norms"])
+    out["control_f32_line_search"] = {"history_rel": c_rel,
+                                      "increment_rel": c_inc,
+                                      "history": ctl[3]}
+    log(f"control (float32 residual in the line search): history "
+        f"{ctl[3]}, rel. {c_rel}; increments rel. {c_inc}")
+    check(c_rel is None or any(r > tol for r, tol in zip(c_rel, tols)),
+          "the float32 line search passes the history tolerance")
+    check(any(r > tol for r, tol in zip(c_inc, RESCUE_INCREMENT_RTOL)),
+          "the float32 line search passes the increment tolerance")
+    return out
+
+
+def write_streamer_tree(base: Path) -> Path:
+    """tests/unit/test_streamer_file_input.py's reference-format tree: the
+    Bagheri closed forms as `fun:E` expressions, LFA."""
+    header = "# Dependence:  {dep}\n"
+    model = base / "benchmark_model"
+    tc = model / "transport_coefficients"
+    tc.mkdir(parents=True, exist_ok=True)
+    (model / "species").mkdir(exist_ok=True)
+    (model / "speclist.cfg").write_text(
+        "neutrals    file: neutrals.cfg\nions        file: ions.cfg\n"
+        "e           file: electrons.cfg\n")
+    for sp, z, mass in [("neutrals", 0, 4.7e-26), ("ions", 1, 4.7e-26),
+                        ("electrons", -1, 9.10938356e-31)]:
+        (model / "species" / f"{sp}.cfg").write_text(
+            f"Z    = {z}\nMass = {mass}\nNmom = 2\n")
+    (tc / "e_Nb.dat").write_text(header.format(dep="fun:E")
+                                 + "2.3987*E_m**(-0.26)\n")
+    (tc / "e_ND.dat").write_text(header.format(dep="fun:E")
+                                 + "4.3628e-3*E_m**(0.22)\n")
+    for sp in ("ions", "neutrals"):
+        (tc / f"{sp}_Nb.dat").write_text(header.format(dep="const")
+                                         + "0.0\n")
+        (tc / f"{sp}_ND.dat").write_text(header.format(dep="const")
+                                         + "0.0\n")
+    (tc / "alpha.dat").write_text(
+        header.format(dep="fun:E")
+        + "(1.1944e6 + 4.3666e26 * E_m**(-3))*exp(-2.73e7/E_m)-340.75\n")
+    return base
+
+
+def column_stats(x, v) -> list:
+    """Per-column 2-norms, then per-column dots with `v` (numpy)."""
+    x = x.double().cpu().numpy()
+    return ([float((x[:, k] ** 2).sum() ** 0.5) for k in range(3)]
+            + [float(x[:, k] @ v[:, k]) for k in range(3)])
+
+
+def options(k1, card) -> dict:
+    """Phase options: the JAX package's default StreamerConfig through
+    `from_file_input`, its preconditioner flavours and one advance of each
+    option (tools/port_reference_options.py)."""
+    import tempfile
+
+    import numpy as np
+
+    from fedm_tpu_torch.model.system import StepParams
+    from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel
+    from fedm_tpu_torch.solvers import newton
+
+    ref = REF_OPTIONS
+    out = {"card": card}
+    r_np = np.random.default_rng(0).standard_normal((ref["n_dofs"], 3))
+    v_np = np.random.default_rng(1).standard_normal((ref["n_dofs"], 3))
+
+    def flat_ref(stats):
+        return stats["norms"] + stats["dots"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = write_streamer_tree(Path(tmp))
+        t = time.perf_counter()
+        models = {name: StreamerModel.from_file_input(
+            tree, device="cuda", **kw) for name, kw in OPTION_CONFIGS.items()}
+        control = StreamerModel.from_file_input(tree, device="cuda",
+                                                dtype=torch.float32)
+        built_in = StreamerModel(StreamerConfig(), device="cuda")
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t
+    mg = models["mg"]
+    n_dofs = mg.space.n_dofs
+    log(f"options: {len(models) + 2} models of {n_dofs} dofs "
+        f"({3 * n_dofs} unknowns) built in {out['build_s']:.2f} s")
+    check(n_dofs == ref["n_dofs"] and mg.cfg.poisson_precond == "mg"
+          and mg.SIGN == (1.0, -1.0), "the file-input model is not the "
+                                      "JAX default")
+    E = torch.tensor([1e3, 3e5, 2.5e6, 1.2e7], dtype=torch.float64,
+                     device="cuda")
+    for name in ("_mu_e", "_D_e", "_alpha"):
+        check(torch.equal(getattr(mg, name)(E_m=E),
+                          getattr(built_in, name)(E_m=E)),
+              f"the compiled {name} differs from the built-in expression")
+    # the initial states agree to the Poisson CG's rounding (the levels'
+    # setup sums with index_add_, whose CUDA atomics add in a varying
+    # order); at one state the two residuals are the same arithmetic
+    s0, sb = mg.initial_state(), built_in.initial_state()
+    state_rel = _rel([float(torch.linalg.vector_norm(s0.u[:, k]))
+                      for k in range(3)],
+                     [float(torch.linalg.vector_norm(sb.u[:, k]))
+                      for k in range(3)])
+    p0 = StepParams(sb.dt, sb.dt, sb.dt_old)
+    check(max(state_rel) <= 1e-12 and torch.equal(
+        mg.system.residual(sb.u, sb.u, sb.u_old1, p0),
+        built_in.system.residual(sb.u, sb.u, sb.u_old1, p0)),
+        "the file-input model's initial state or residual differs from "
+        "the built-in model's")
+    log(f"file input: the compiled expressions and the initial residual "
+        f"equal the built-in model's; initial states rel. {state_rel}")
+    del built_in
+
+    def precond_stats(model, dtype):
+        s = model.initial_state()
+        ops = model.system.operators(s.u, s.u_old1, StepParams(
+            s.dt, s.dt, s.dt_old))
+        delta = torch.zeros_like(s.u, dtype=dtype)
+        M = model.system.block_precond_builder(ops)(delta)
+        r = torch.as_tensor(r_np, dtype=dtype, device="cuda")
+        return column_stats(M(r), v_np), ops, delta
+
+    out["precond_rel"] = {}
+    for name in ("mg", "zline", "tzline"):
+        got, ops, delta = precond_stats(models[name], torch.float64)
+        out["precond_rel"][name] = held_to(
+            f"M r {name} (norms, dots)", got,
+            flat_ref(ref["precond"][name]), [OPTIONS_PRECOND_RTOL] * 6)
+        if name == "mg":
+            out["row_weights_rel"] = held_to(
+                "row weights (norms, dots)",
+                column_stats(mg.system.row_weights(ops, delta), v_np),
+                flat_ref(ref["row_weights"]), [OPTIONS_PRECOND_RTOL] * 6)
+    out["precond_f32_rel"] = refused_by(
+        "M r mg of the float32 model", precond_stats(control,
+                                                     torch.float32)[0],
+        flat_ref(ref["precond"]["mg"]), [OPTIONS_PRECOND_RTOL] * 6)
+    del control
+
+    counts = {}
+    patches = {name: counting(counts, name, getattr(newton, name))
+               for name in ("newton_iteration", "bicgstab", "gmres")}
+    out["advance"] = {}
+    for name, model in models.items():
+        model.system.use_gather_scatter()
+        s = model.initial_state()
+        counts.clear()
+        k1.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with mock.patch.multiple(newton, **patches):
+            s1 = model.make_driver().advance(s)
+        torch.cuda.synchronize()
+        rec = {"advance_s": time.perf_counter() - t,
+               "accepted": s1.n_accepted, "rejected": s1.n_rejected,
+               "dt": s1.dt, "t": s1.t, "error": s1.max_error[0],
+               "iterations": dict(counts), "launches": k1_launches(k1)}
+        jr = ref["advance"][name]
+        rec["dt_rel"] = abs(rec["dt"] - jr["dt"]) / jr["dt"]
+        rec["error_rel"] = abs(rec["error"] - jr["error"]) / jr["error"]
+        out["advance"][name] = rec
+        log(f"options advance {name}: {rec['advance_s']:.2f} s, accepted/"
+            f"attempted {rec['accepted']}/{rec['accepted'] + rec['rejected']}"
+            f", iterations {rec['iterations']} (JAX {jr['iterations']}), "
+            f"dt {rec['dt']:.6e} (rel. {rec['dt_rel']:.2e}), step error "
+            f"rel. {rec['error_rel']:.2e}, K1 {rec['launches']}")
+        check((rec["accepted"], rec["rejected"]) == (jr["accepted"],
+                                                    jr["rejected"]),
+              f"options {name}: accepted/rejected differ from the JAX "
+              f"package's")
+        # float64: the counts inside the range the JAX package's own
+        # counts take under 1e-12 perturbations of the state; where that
+        # range is one number, the counts are the JAX package's. float32:
+        # the same outcome and step error; the counts are reported
+        for key, (lo, hi) in jr.get("spread", {}).items():
+            check(lo <= rec["iterations"].get(key, 0) <= hi,
+                  f"options {name}: {key} {rec['iterations'].get(key, 0)} "
+                  f"outside the JAX package's {lo}-{hi}")
+        check("spread" not in jr or rec["iterations"].get("gmres", 0)
+              == jr["iterations"].get("gmres", 0),
+              f"options {name}: GMRES iterations differ")
+        tol = OPTIONS_STEP_RTOL[name.endswith("f32")]
+        check(rec["dt_rel"] <= tol and rec["error_rel"] <= tol,
+              f"options {name}: dt or step error off the JAX package's")
+        check(bool(torch.isfinite(s1.u).all()), f"options {name}: "
+                                                "non-finite state")
+        check(rec["launches"]["ell_scatter_add_"] > 0,
+              f"options {name}: K1's compact form never ran")
     return out
 
 
@@ -708,10 +1163,11 @@ def main() -> int:
     # the bench configuration (bench.py:88-111)
     nc = NewtonConfig(rtol=1e-3, max_iter=20, linear_tol=3e-2,
                       linear_maxiter=400, accept_reduction=3e-2,
-                      hi_residual=True)
+                      hi_residual=True, host_loop=True)
     cfg = StreamerConfig(dtype=torch.float32, newton=nc,
                          z_corridor=(0.0, 1.08e-2, 1e-5),
-                         density_floor=1e13, r_corridor=(2e-3, 2e-5))
+                         density_floor=1e13, r_corridor=(2e-3, 2e-5),
+                         poisson_precond="mg-zline")
     model = StreamerModel(cfg, device="cuda")
     model.system.use_gather_scatter()
     fb = model.system.facet_kernels[0][0]
@@ -830,11 +1286,21 @@ def main() -> int:
 
     phase("4 fresh window")
     del model, driver, state
-    window = fresh_window(k1, card)
+    window, wmodel, moved = fresh_window(k1, card)
+
+    phase("4b rescue")
+    rescue_out = rescue(k1, card, wmodel, moved)
+    del wmodel, moved
 
     phase("5 glow")
     glow_out = glow(k1, card)
+
+    phase("6 options")
+    options_out = options(k1, card)
     signal.alarm(0)
+    option_launches = collections.Counter()
+    for rec in options_out["advance"].values():
+        option_launches.update(rec["launches"])
 
     main_case = compact[0]  # facet C=3 float32: the main path's usual launch
     kernels = [{
@@ -843,10 +1309,14 @@ def main() -> int:
         "replaces": "fedm_tpu/ops/pallas_scatter.py:34",
         "launches": (sum(launches.values())
                      + sum(window["launches"].values())
-                     + sum(glow_out["launches"].values())),
+                     + sum(rescue_out["launches"].values())
+                     + sum(glow_out["launches"].values())
+                     + sum(option_launches.values())),
         "launches_by_path": {"restart": launches,
                              "fresh_window": window["launches"],
-                             "glow": glow_out["launches"]},
+                             "rescue": rescue_out["launches"],
+                             "glow": glow_out["launches"],
+                             "options": dict(option_launches)},
         "glow_launches_by_shape": glow_out["launches_by_shape"],
         "max_abs_err": max(c["max_abs_err"]
                            for c in cases + compact + glow_cases),
@@ -868,7 +1338,8 @@ def main() -> int:
                       "accepted": accepted, "attempts": attempts,
                       "peak_bytes": peak, "residual_norms": norms,
                       "residual_rel_to_jax": rel},
-        "fresh_window": window, "glow": glow_out}))
+        "fresh_window": window, "rescue": rescue_out, "glow": glow_out,
+        "options": options_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

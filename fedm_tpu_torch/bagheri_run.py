@@ -2,23 +2,25 @@
 port: `tools/bagheri_run.py` of the JAX package, with the same flags,
 presets, checkpoints and logs.
 
-    python -m fedm_tpu_torch.bagheri_run --preset bagheri14 \\
-        --no-direct-rescue --out DIR [--device cuda] [--T 1.4e-8]
+    python -m fedm_tpu_torch.bagheri_run --preset bagheri14 --out DIR \\
+        [--device cuda] [--T 1.4e-8]
     python -m fedm_tpu_torch.bagheri_run --out DIR --resume ...
 
 It runs U = 18.75 kV across a 1.25 cm gap of 760 Torr air from t = 0 (or
 from DIR/checkpoint.npz with --resume): float32 compute with the float64
 defect (--hi-res), or float64 (--f64); the moving fine-dz window
 (--window-dz) that follows the ionisation front, re-centred whenever the
-front nears its leading third; periodic checkpoints that carry the
-window's geometry and the protocol in their meta; `relative error.log`
-and `newton.log` in DIR.
+front nears its leading third; the host sparse-direct Newton rescue
+(--direct-rescue) or a float64 escalation model for the steps the primary
+Newton refuses; the Poisson-row preconditioner (--precond), transport
+z-lines (--tzline) and row equilibration (--row-scaled); periodic
+checkpoints that carry the window's geometry and the protocol in their
+meta; `relative error.log` and `newton.log` in DIR.
 
-Options the port does not have yet raise an error naming the ROADMAP.md
-slice that brings them: --direct-rescue (slice 10), --devices > 1
-(slice 12), --tzline, --row-scaled and --precond zline (9.4), --precond mg
-(slice 11). As in the JAX tool, --f64 runs on the static --full-gap mesh
-only, not with a moving window.
+--devices > 1 (multi-GPU) is refused: it comes with ROADMAP.md slice 12.
+As in the JAX tool, --f64 runs on the static --full-gap mesh only, not
+with a moving window, and a window moves only under the structured
+--precond mg-zline.
 """
 
 from __future__ import annotations
@@ -98,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["mg", "mg-zline", "zline"])
     ap.add_argument("--max-steps", type=int, default=100000)
     ap.add_argument("--row-scaled", action="store_true",
-                    help="row equilibration (not ported: ROADMAP.md 9.4)")
+                    help="row equilibration by the assembled l1 row norms "
+                         "(StreamerConfig.row_scaled)")
     ap.add_argument("--no-floor", action="store_true",
                     help="disable the far-field background density floor")
     ap.add_argument("--rtol", type=float, default=None,
@@ -128,8 +131,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="report the count of node blocks that take the "
                          "Jacobi fallback at each report")
     ap.add_argument("--direct-rescue", action="store_true",
-                    help="host sparse-direct Newton escalation (not "
-                         "ported: ROADMAP.md slice 10)")
+                    help="host sparse-direct Newton escalation "
+                         "(solvers.direct.DirectNewton); needs "
+                         "--no-fallback or --f64")
     ap.add_argument("--no-fallback", action="store_true",
                     help="float32 only: no float64 escalation system")
     ap.add_argument("--fallback", dest="no_fallback", action="store_false",
@@ -150,8 +154,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="wall-clustered lower tail: first cell size at "
                          "the cathode (StreamerConfig.z_wall_dz)")
     ap.add_argument("--tzline", action="store_true",
-                    help="transport z-line preconditioning (not ported: "
-                         "ROADMAP.md 9.4)")
+                    help="transport z-line preconditioning of the electron "
+                         "row (StreamerConfig.transport_zline)")
     ap.add_argument("--predictor", type=float, default=0.0,
                     help="AdaptiveDriver.predictor (0 = off)")
     ap.add_argument("--fail-dt-cap", type=float, default=0.0,
@@ -186,22 +190,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     if not 0.0 <= args.accept_reduction < 1.0:
         ap.error(f"--accept-reduction must be in [0, 1): "
                  f"{args.accept_reduction}")
-    not_ported = [
-        (args.direct_rescue, "--direct-rescue (the host sparse-direct "
-         "rescue) comes with ROADMAP.md slice 10; pass --no-direct-rescue"),
-        (args.devices > 1, "--devices > 1 (multi-GPU) comes with "
-         "ROADMAP.md slice 12"),
-        (args.tzline, "--tzline (transport z-line preconditioning) comes "
-         "with ROADMAP.md 9.4"),
-        (args.row_scaled, "--row-scaled comes with ROADMAP.md 9.4"),
-        (args.precond == "zline", "--precond zline (ZLineSmoother) comes "
-         "with ROADMAP.md 9.4"),
-        (args.precond == "mg", "--precond mg (the unstructured geometric "
-         "multigrid) comes with ROADMAP.md slice 11"),
-    ]
-    for bad, msg in not_ported:
-        if bad:
-            ap.error(f"not ported yet: {msg}")
+    if args.devices > 1:
+        ap.error("not ported yet: --devices > 1 (multi-GPU) comes with "
+                 "ROADMAP.md slice 12")
+    if args.direct_rescue and not (args.no_fallback or args.f64):
+        ap.error("--direct-rescue replaces the float64 escalation: pass "
+                 "--no-fallback (or --f64)")
     if args.window_dz is not None and not args.no_fallback:
         ap.error("--window-dz needs --no-fallback: the float64 escalation "
                  "model does not follow window moves")
@@ -233,7 +227,9 @@ def build_models(args: argparse.Namespace, corridor: tuple):
     from .solvers.newton import NewtonConfig
 
     common = dict(nx=args.nx, z_corridor=corridor, stab_mode=args.stab,
-                  T_final=args.T)
+                  poisson_precond=args.precond, T_final=args.T,
+                  row_scaled=args.row_scaled,
+                  transport_zline=args.tzline)
     if args.window_dz is not None:
         tail_cells = tuple(int(v) for v in args.tail_cells.split(","))
         if len(tail_cells) != 2:
@@ -254,7 +250,7 @@ def build_models(args: argparse.Namespace, corridor: tuple):
                   linear_solver=args.linear_solver or "bicgstab",
                   accept_reduction=args.accept_reduction,
                   true_res_rescue=args.true_res_rescue,
-                  delta_clip=delta_clip)
+                  delta_clip=delta_clip, host_loop=True)
     fallback = None
     if args.f64:
         nc = NewtonConfig(rtol=args.rtol or 1e-3, **newton)
@@ -275,14 +271,21 @@ def build_models(args: argparse.Namespace, corridor: tuple):
 
 def build_driver(args: argparse.Namespace, model, fallback=None):
     """The run's adaptive driver, writing `relative error.log`,
-    `newton.log` and, on a dt_min death, `crash.npz` into --out."""
+    `newton.log` and, on a dt_min death, `crash.npz` into --out; its
+    fallback is the direct rescue with --direct-rescue, else the float64
+    model's system, if any."""
+    from .solvers.direct import DirectNewton
     from .timestepping import AdaptiveDriver
 
+    if args.direct_rescue:
+        fallback_system = DirectNewton(model.system, verbose=args.verbose)
+    else:
+        fallback_system = None if fallback is None else fallback.system
     return AdaptiveDriver(
         model.system, monitor_idx=1, ttol=model.cfg.ttol,
         dt_min=model.cfg.dt_min, dt_max=model.cfg.dt_max,
         error_log=args.out / "relative error.log",
-        fallback_system=None if fallback is None else fallback.system,
+        fallback_system=fallback_system,
         crash_checkpoint=args.out / "crash.npz",
         post_accept=model.floor_projection(), verbose=args.verbose,
         fail_dt_cap=args.fail_dt_cap, predictor=args.predictor,

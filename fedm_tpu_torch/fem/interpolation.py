@@ -1,5 +1,7 @@
-"""Inter-mesh nodal interpolation (P1) for the multigrid transfers (the
-JAX package's `fem/interpolation.py`, 2D).
+"""Inter-mesh nodal interpolation for the multigrid transfers (the JAX
+package's `fem/interpolation.py`, 2D): P1 transfers between any nested
+meshes, and the separable `StructuredTransfer` between nested
+tensor-product grids.
 
 Where the fine domain is covered by the coarse mesh (any nesting the
 structured generators produce), each fine node's value is the P1
@@ -15,6 +17,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .space import FunctionSpace
 
@@ -105,3 +108,55 @@ def restrict(idx: torch.Tensor, w: torch.Tensor, r_fine: torch.Tensor,
     vals = (w * r_fine[:, None]).reshape(-1)
     out = torch.zeros(n_coarse, dtype=vals.dtype, device=vals.device)
     return out.index_add_(0, idx.reshape(-1), vals)
+
+
+def prolong_axis(U: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Last axis [.., nc] -> [.., 2*nc-1] (linear, physical weights)."""
+    odd = U[..., :-1] * (1.0 - w) + U[..., 1:] * w
+    body = torch.stack([U[..., :-1], odd], dim=-1).flatten(-2)
+    return torch.cat([body, U[..., -1:]], dim=-1)
+
+
+def restrict_axis(r: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact transpose of `prolong_axis`: [.., 2*nc-1] -> [.., nc]."""
+    odd = r[..., 1::2]
+    return (r[..., ::2] + F.pad((1.0 - w) * odd, (0, 1))
+            + F.pad(w * odd, (1, 0)))
+
+
+class StructuredTransfer:
+    """Separable prolongation and restriction between nested tensor-product
+    vertex grids (fine [nif, njf] with nif = 2 * nic - 1) on flat vectors
+    in the canonical `id = j * n_i + i` layout (the JAX package's
+    `StructuredTransfer`). Prolongation is linear per axis with weights
+    from the physical coordinates (graded meshes); restriction is its
+    exact transpose. Pure slicing and padding: no gathers, no segment sums.
+    """
+
+    def __init__(self, xs_c, zs_c, xs_f, zs_f, dtype=None, *, device):
+        dtype = torch.float64 if dtype is None else dtype
+        xs_c, zs_c = np.asarray(xs_c), np.asarray(zs_c)
+        xs_f, zs_f = np.asarray(xs_f), np.asarray(zs_f)
+        if not (len(xs_f) == 2 * len(xs_c) - 1
+                and len(zs_f) == 2 * len(zs_c) - 1
+                and np.allclose(xs_f[::2], xs_c)
+                and np.allclose(zs_f[::2], zs_c)):
+            raise ValueError("the grids are not 2:1 nested")
+        self.nic, self.njc = len(xs_c), len(zs_c)
+        self.nif, self.njf = len(xs_f), len(zs_f)
+        wx = (xs_f[1::2] - xs_c[:-1]) / (xs_c[1:] - xs_c[:-1])
+        wz = (zs_f[1::2] - zs_c[:-1]) / (zs_c[1:] - zs_c[:-1])
+        self._wx = torch.as_tensor(wx, dtype=dtype, device=device)
+        self._wz = torch.as_tensor(wz, dtype=dtype, device=device)
+
+    def prolong(self, e_c: torch.Tensor) -> torch.Tensor:
+        E = e_c.reshape(self.njc, self.nic)          # [j, i] layout
+        E = prolong_axis(E, self._wx)               # along i
+        E = prolong_axis(E.T, self._wz).T           # along j
+        return E.reshape(-1)
+
+    def restrict(self, r_f: torch.Tensor) -> torch.Tensor:
+        R = r_f.reshape(self.njf, self.nif)
+        R = restrict_axis(R, self._wx)
+        R = restrict_axis(R.T, self._wz).T
+        return R.reshape(-1)

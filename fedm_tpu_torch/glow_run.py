@@ -137,7 +137,8 @@ def build_models(args: argparse.Namespace):
         if args.hi_res:
             nc = NewtonConfig(rtol=1e-3, max_iter=20,
                               linear_tol=args.linear_tol,
-                              linear_maxiter=600, hi_residual=True)
+                              linear_maxiter=600, hi_residual=True,
+                              host_loop=True)
         else:
             nc = NewtonConfig(rtol=5e-3, max_iter=20,
                               linear_tol=args.linear_tol, linear_maxiter=600)

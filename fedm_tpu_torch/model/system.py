@@ -19,19 +19,30 @@ J v = scatter(jvp(kernel)(gather(v))): forward-mode
 AD runs only through the plain-torch element kernels, never through the
 scatter (whose ELL branch is an opaque CUDA kernel). The node-block Jacobi
 preconditioner pushes the n_local*n_eq local tangent basis vectors through
-the kernels the same way and keeps the same-node blocks.
+the kernels the same way and keeps the same-node blocks; the same pass
+gives the transport z-line couplings (`enable_transport_zline`) and, with
+absolute values, the row norms of the row-equilibrated system
+(`row_scaled`).
+
+`step` runs the host loop (`newton_solve`) when `NewtonConfig.host_loop`
+is set and the system is not row-scaled, else the whole-solve loop
+(`newton_krylov`), as the JAX package's `CoupledSystem.step` does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
 from ..fem.assembly import CellBatch, FacetBatch
 from ..fem.dirichlet import BCSet
-from ..solvers.newton import NewtonConfig, newton_solve
+from ..solvers.linear import _norm
+from ..solvers.linesmoother import tridiag_solve_pcr
+from ..solvers.newton import NewtonConfig, newton_krylov, newton_solve
 from ..solvers.precond import block_apply, invert_blocks
 
 
@@ -122,26 +133,68 @@ class StepOperators:
 
         return apply
 
-    def jacobian_blocks(self, delta: torch.Tensor) -> torch.Tensor:
+    def _local_tangents(self, batch, kernel, ctx, delta):
+        """(a, j, t) for every local tangent basis vector e_(a, j): t is
+        the kernel's tangent [n_elems, n_local, n_eq] along it."""
+        u_e = batch.gather(delta)
+        for a in range(u_e.shape[1]):
+            for j in range(self.n_eq):
+                tan = torch.zeros_like(u_e)
+                tan[:, a, j] = 1.0
+                yield a, j, _jvp(kernel, batch, ctx, u_e, tan)
+
+    def jacobian_blocks(self, delta: torch.Tensor, zline=None):
         """Exact per-dof diagonal blocks B[n, i, j] = dR_i/d delta_j at dof n
-        [n_dofs, n_eq, n_eq]; Dirichlet rows are identity rows."""
+        [n_dofs, n_eq, n_eq]; Dirichlet rows are identity rows.
+
+        `zline` = (eqs, m_sub, m_sup): from the same tangents, also the
+        cell batch's z-neighbour couplings of each equation in `eqs`,
+        J[row, row -/+ n_i][e, e]: sub and sup [n_dofs, len(eqs)], zero on
+        Dirichlet rows. `m_sub`/`m_sup` [n_cells, b_out, a_in] mark the
+        local pairs whose dofs differ by +/- n_i. Returns blocks, or
+        (blocks, (sub, sup)) with `zline`."""
         ne = self.n_eq
         blocks = self._zeros(ne, ne)
-        for (batch, kernel), ctx in zip(self.batches, self.ctxs):
-            u_e = batch.gather(delta)
-            n_elems, nl = u_e.shape[:2]
+        zc = None
+        for bi, ((batch, kernel), ctx) in enumerate(zip(self.batches,
+                                                         self.ctxs)):
+            n_elems, nl = batch.dofs.shape
             # diag[c, a, i, j] = d contrib(c, a, i) / d u_e(c, a, j)
             diag = torch.empty((n_elems, nl, ne, ne), dtype=self.dtype,
-                               device=u_e.device)
-            for a in range(nl):
-                for j in range(ne):
-                    tan = torch.zeros_like(u_e)
-                    tan[:, a, j] = 1.0
-                    diag[:, a, :, j] = _jvp(kernel, batch, ctx, u_e,
-                                            tan)[:, a, :]
+                               device=delta.device)
+            cross = None
+            if zline is not None and bi == 0:
+                eqs, m_sub, m_sup = zline
+                cross = torch.zeros((n_elems, nl, len(eqs), 2),
+                                    dtype=self.dtype, device=delta.device)
+            for a, j, t in self._local_tangents(batch, kernel, ctx, delta):
+                diag[:, a, :, j] = t[:, a, :]
+                if cross is not None and j in eqs:
+                    k = eqs.index(j)
+                    cross[:, :, k, 0] += m_sub[:, :, a] * t[:, :, j]
+                    cross[:, :, k, 1] += m_sup[:, :, a] * t[:, :, j]
             blocks = batch.scatter_add(blocks, diag)
+            if cross is not None:
+                zc = batch.scatter_add(self._zeros(len(eqs), 2), cross)
         eye = torch.eye(ne, dtype=self.dtype, device=blocks.device)
-        return torch.where(self.mask[:, :, None], eye, blocks)
+        blocks = torch.where(self.mask[:, :, None], eye, blocks)
+        if zline is None:
+            return blocks
+        row_mask = self.mask[:, list(zline[0])]
+        return blocks, (torch.where(row_mask, 0.0, zc[..., 0]),
+                        torch.where(row_mask, 0.0, zc[..., 1]))
+
+    def row_l1(self, delta: torch.Tensor) -> torch.Tensor:
+        """Upper bound on the assembled Jacobian's l1 row norms [n_dofs,
+        n_eq]: sum over elements and local columns of |d contrib / d
+        delta|, neighbour couplings included."""
+        norms = self._zeros(self.n_eq)
+        for (batch, kernel), ctx in zip(self.batches, self.ctxs):
+            contrib = None
+            for _, _, t in self._local_tangents(batch, kernel, ctx, delta):
+                contrib = t.abs() if contrib is None else contrib + t.abs()
+            norms = batch.scatter_add(norms, contrib)
+        return norms
 
 
 class CoupledSystem:
@@ -155,8 +208,15 @@ class CoupledSystem:
         self.cell_kernel: Optional[Callable] = None
         self.facet_kernels: List[Tuple[FacetBatch, Callable]] = []
         self._ell = None  # (eq, solve) of the elliptic preconditioner
+        self._tzline = None  # (eqs, node grid [n_i, n_j], z-line masks)
         # absolute Newton target set by the driver (its floor_atol)
         self.dyn_atol = 0.0
+        # row equilibration by the assembled l1 row norms; always solved
+        # by `newton_krylov`, without the float64 defect
+        self.row_scaled = False
+        # with `row_scaled`: an absolute target of this times ||u_old||
+        # (0 disables)
+        self.row_scaled_atol_rel = 0.0
 
     @property
     def dtype(self):
@@ -192,10 +252,83 @@ class CoupledSystem:
         for (b, _), new in zip(held, batches):
             b.set_geometry(new)
 
-    def enable_elliptic_precond(self, eq: int, mg) -> None:
-        """Replace the node-block answer on row `eq` by one V-cycle of `mg`
-        (an object with `precond(r)`), the Poisson-block preconditioner."""
-        self._ell = (eq, mg.precond)
+    def enable_elliptic_precond(self, eq: int, degree: int = 12,
+                                ratio: float = 30.0, power_iters: int = 40,
+                                mg=None, solver=None) -> None:
+        """Replace the node-block answer on row `eq` by an approximate
+        solve of that component's masked Laplacian: one V-cycle of `mg`
+        (an object with `precond(r)`), any linear operator `solver`
+        (r -> ~A^-1 r, e.g. `ZLineSmoother.solve`), or else a Chebyshev
+        polynomial of the given degree in the Jacobi-scaled operator."""
+        from ..solvers.chebyshev import chebyshev_solver, power_iteration_lmax
+        from ..solvers.elliptic import stiffness_diagonal
+
+        if solver is not None:
+            self._ell = (eq, solver)
+            return
+        if mg is not None:
+            self._ell = (eq, mg.precond)
+            return
+        mask = self.bcs.mask[:, eq]
+        diag = stiffness_diagonal(self.cell_batch)
+        dtilde = torch.where(mask | (diag == 0), 1.0, diag)
+        A = self.masked_stiffness_op(eq)
+
+        def At(x):
+            return A(x) / dtilde
+
+        lmax = power_iteration_lmax(At, self.n_dofs, iters=power_iters,
+                                    device=mask.device)
+        cheb = chebyshev_solver(At, lmax / ratio, 1.05 * lmax, degree)
+        self._ell = (eq, lambda r: cheb(r / dtilde))
+
+    def masked_stiffness_op(self, eq: int) -> Callable:
+        """The masked Laplacian of component `eq` on [n_dofs] vectors
+        (identity on Dirichlet rows), in the cell batch's type: the
+        operator the elliptic preconditioners approximate."""
+        mask = self.bcs.mask[:, eq]
+        b = self.cell_batch
+
+        def A(x):
+            x_in = torch.where(mask, 0.0, x).to(b.dtype)
+            Ax = b.scatter(b.stiffness(b.grad(b.gather(x_in))))
+            return torch.where(mask, x, Ax)
+
+        return A
+
+    def enable_transport_zline(self, eqs, node_grid) -> None:
+        """Per-z-line tridiagonal preconditioning of the transport rows
+        `eqs` on a canonical tensor-product grid: each application solves,
+        per line of `node_grid` [n_i, n_j] (lines along j, z-neighbour
+        stride n_i), the tridiagonal of the exact z-couplings the block
+        build extracts, and replaces the node-block answer on those rows
+        (not under `row_scaled`: the tridiagonal is assembled unscaled)."""
+        grid = np.asarray(node_grid)
+        n_i = int(grid.shape[0])
+        # [c, b_out, a_in]: local pairs whose dofs differ by -/+ n_i
+        dofs = self.cell_batch.dofs_np
+        d = dofs[:, :, None] - dofs[:, None, :]
+        dev, dt = self.bcs.mask.device, self.dtype
+        self._tzline = (tuple(int(e) for e in eqs),
+                        torch.as_tensor(grid, device=dev),
+                        torch.as_tensor(d == n_i, dtype=dt, device=dev),
+                        torch.as_tensor(d == -n_i, dtype=dt, device=dev))
+
+    def _tzline_solver(self, blocks, sub, sup) -> Callable:
+        """r [n_dofs, n_sel] -> the per-z-line tridiagonal solves with the
+        exact (sub, diag, sup) couplings, diag from the node blocks."""
+        eqs, grid = self._tzline[:2]
+        flat = grid.reshape(-1)
+
+        def solve(r):
+            out = torch.empty_like(r)
+            for k, e in enumerate(eqs):
+                x = tridiag_solve_pcr(sub[:, k][grid], blocks[:, e, e][grid],
+                                      sup[:, k][grid], r[:, k][grid])
+                out[flat, k] = x.reshape(-1)
+            return out
+
+        return solve
 
     def _hi_enabled(self) -> bool:
         return self.newton.hi_residual and self.dtype != torch.float64
@@ -211,23 +344,54 @@ class CoupledSystem:
         ops = self.operators(u_old, u_old1, params, dtype, aux)
         return ops.residual((u - u_old).to(ops.dtype))
 
-    def block_precond_builder(self, ops: StepOperators) -> Callable:
-        """delta -> M, with M^-1 the inverted node blocks and, on the
-        elliptic row, the V-cycle."""
+    def block_precond_builder(self, ops: StepOperators,
+                              row_weights: Optional[torch.Tensor] = None
+                              ) -> Callable:
+        """delta -> M, with M^-1 the inverted node blocks, on the transport
+        z-line rows their tridiagonal solves, and on the elliptic row its
+        solve. With `row_weights` [n_dofs, n_eq] (a row-equilibrated
+        residual) the blocks are the scaled w*B, the elliptic solve sees
+        the unscaled r/w, and no z-line solve runs."""
+        tz = self._tzline if row_weights is None else None
+
         def build(delta):
-            inv = invert_blocks(ops.jacobian_blocks(delta))
+            if tz is not None:
+                eqs, _, m_sub, m_sup = tz
+                blocks, (sub, sup) = ops.jacobian_blocks(
+                    delta, (eqs, m_sub, m_sup))
+                tz_solve = self._tzline_solver(blocks, sub, sup)
+            else:
+                blocks = ops.jacobian_blocks(delta)
+                tz_solve = None
+            if row_weights is not None:
+                blocks = row_weights[:, :, None] * blocks
+            inv = invert_blocks(blocks)
             ell = self._ell
 
             def M(r):
                 y = block_apply(inv, r)
+                if tz_solve is not None:
+                    y[:, list(tz[0])] = tz_solve(r[:, list(tz[0])])
                 if ell is not None:
                     eq, solve = ell
-                    y[:, eq] = solve(r[:, eq])
+                    r_eq = r[:, eq]
+                    if row_weights is not None:
+                        r_eq = r_eq / row_weights[:, eq]
+                    y[:, eq] = solve(r_eq)
                 return y
 
             return M
 
         return build
+
+    def row_weights(self, ops: StepOperators,
+                    delta: torch.Tensor) -> torch.Tensor:
+        """1 / (assembled l1 row norm) at `delta`, 1 where that norm is 0
+        or not finite and on Dirichlet rows."""
+        rownorm = ops.row_l1(delta)
+        w = torch.where((rownorm > 0) & torch.isfinite(rownorm),
+                        1.0 / rownorm, 1.0)
+        return torch.where(self.bcs.mask, 1.0, w).to(rownorm.dtype)
 
     def guarded_block_count(self, u_old, u_old1, params: StepParams,
                             aux: Optional[Dict] = None) -> int:
@@ -240,20 +404,50 @@ class CoupledSystem:
         return invert_blocks(ops.jacobian_blocks(delta), with_count=True)[1]
 
     def step(self, u_guess, u_old, u_old1, aux: Dict, params: StepParams):
-        """One attempted nonlinear solve at (t, dt): Newton from
-        delta = u_guess - u_old. A `u_guess` that is another tensor than
-        `u_old` is a predicted guess (see `newton_solve`). Returns
-        (u_new, NewtonInfo)."""
+        """One attempted nonlinear solve at (t, dt) from
+        delta = u_guess - u_old. With `NewtonConfig.host_loop` and no row
+        scaling, the host loop (`newton_solve`): a `u_guess` that is
+        another tensor than `u_old` is a predicted guess. Otherwise the
+        whole-solve loop (`newton_krylov`). Returns (u_new, NewtonInfo)."""
         ops = self.operators(u_old, u_old1, params, aux=aux)
+        delta = (u_guess - u_old).to(self.dtype)
         R_hi = None
-        if self._hi_enabled():
+        if self._hi_enabled() and not self.row_scaled:
             R_hi = self.operators(u_old, u_old1, params, torch.float64,
                                   aux).residual
-        delta = (u_guess - u_old).to(self.dtype)
-        delta, info = newton_solve(ops.residual, ops.jacobian_action, delta,
-                                   self.newton,
-                                   self.block_precond_builder(ops),
-                                   residual_hi=R_hi,
-                                   predicted=u_guess is not u_old,
-                                   dyn_atol=self.dyn_atol)
+        if self.row_scaled:
+            delta, info = self._step_row_scaled(ops, delta, u_old)
+        elif self.newton.host_loop:
+            delta, info = newton_solve(
+                ops.residual, ops.jacobian_action, delta, self.newton,
+                self.block_precond_builder(ops), residual_hi=R_hi,
+                predicted=u_guess is not u_old, dyn_atol=self.dyn_atol)
+        else:
+            delta, info = newton_krylov(
+                ops.residual, ops.jacobian_action, delta, self.newton,
+                self.block_precond_builder(ops), residual_hi=R_hi)
         return u_old + delta.to(u_old.dtype), info
+
+    def _step_row_scaled(self, ops: StepOperators, delta, u_old):
+        """`newton_krylov` on the row-equilibrated system w * R: the
+        weights come from the row norms at the start, and a float32 system
+        that sets no `stol` converges also on stol = 1e-3 (its achievable
+        reduction is capped by assembly noise)."""
+        newton = self.newton
+        w = self.row_weights(ops, delta)
+        if self.row_scaled_atol_rel > 0:
+            atol = self.row_scaled_atol_rel * float(_norm(u_old.to(
+                ops.dtype)))
+            newton = dataclasses.replace(newton, atol=max(newton.atol, atol))
+        if ops.dtype == torch.float32 and newton.stol == 0.0:
+            newton = dataclasses.replace(newton, stol=1e-3)
+
+        def residual(d):
+            return w * ops.residual(d)
+
+        def jacobian_action(d):
+            J = ops.jacobian_action(d)
+            return lambda v: w * J(v)
+
+        return newton_krylov(residual, jacobian_action, delta, newton,
+                             self.block_precond_builder(ops, w))

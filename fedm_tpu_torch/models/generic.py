@@ -215,7 +215,7 @@ class PlasmaModel:
                 self.mg = GeometricMultigrid(
                     spaces, masks, axisymmetric=True, quad_degree=2,
                     dtype=self.batch.dtype, device=dev)
-                self.system.enable_elliptic_precond(self.n_eq - 1, self.mg)
+                self.system.enable_elliptic_precond(self.n_eq - 1, mg=self.mg)
 
     # -- per-species metadata -----------------------------------------------
 

@@ -13,10 +13,13 @@ the residual.
 Port of the JAX package's `models/streamer.py`: the configuration, the
 graded and corridor-refined tensor-product meshes (with the fixed-topology
 tails of the moving window), the cell kernel with optional upwind
-stabilisation, the electrode kernel, the structured z-line multigrid on the
-Poisson row, the initial state (Gaussian ion seed and the initial Poisson
-solve), the moving window (`move_window`) and state remap, and the
-far-field density floor. The reference-format input reader is not ported.
+stabilisation, the electrode kernel, the Poisson-row preconditioners
+(`poisson_precond`: the point-smoothed geometric multigrid, the structured
+z-line multigrid, single-level z-line Richardson), the transport z-line
+preconditioner and row equilibration, the initial state (Gaussian ion seed
+and the initial Poisson solve), the moving window (`move_window`) and state
+remap, the far-field density floor, and the reference-format input reader
+(`from_file_input`).
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from ..model.system import CoupledSystem
 from ..ops.exprs import compile_expression
 from ..ops.stabilization import MODES, directional_h, upwind_diffusion
 from ..solvers.elliptic import solve_poisson
+from ..solvers.linesmoother import ZLineSmoother
+from ..solvers.multigrid import GeometricMultigrid
 from ..solvers.newton import NewtonConfig
 from ..solvers.stencil import canonical_node_grid
 from ..solvers.structured_mg import StructuredPoissonMG
@@ -46,16 +51,16 @@ from ..timestepping import AdaptiveDriver, TimeState
 MU_E_EXPR = "2.3987*E_m**(-0.26)"
 D_E_EXPR = "4.3628e-3*E_m**0.22"
 ALPHA_EXPR = "(1.1944e6 + 4.3666e26 * E_m**(-3))*exp(-2.73e7/E_m)-340.75"
+# Poisson-row preconditioners: the point-Chebyshev-smoothed V-cycle, the
+# V-cycle with z-line relaxation (anisotropic corridor meshes) and
+# single-level z-line Richardson
+POISSON_PRECONDS = ("mg", "mg-zline", "zline")
 
 
 @dataclass
 class StreamerConfig:
     """The JAX package's StreamerConfig, with the same names, defaults and
-    meaning, less the options the port does not have: the port always
-    preconditions the Poisson block with the structured z-line multigrid
-    (the JAX package's `poisson_precond="mg-zline"`), so `mg_levels` must
-    be above 1 and the mesh a tensor-product grid; `transport_zline`,
-    `row_scaled` and `zline_iters` are not ported (ROADMAP.md 9.4)."""
+    meaning."""
 
     U_w: float = 18750.0          # applied voltage [V]
     p0: float = 760.0             # pressure [Torr]
@@ -88,7 +93,13 @@ class StreamerConfig:
     stab_coeff: float = 1.0
     dtype: object = None          # None -> float64; torch.float32 for the
                                   # fast path with float64 reductions
-    mg_levels: int = 4            # the Poisson block's structured MG
+    mg_levels: int = 4            # Poisson-block V-cycle levels; <= 1
+                                  # disables the multigrid
+    poisson_precond: str = "mg"   # one of POISSON_PRECONDS
+    zline_iters: int = 2          # Richardson sweeps of 'zline'
+    # per-z-line tridiagonal preconditioning of the electron transport row
+    # (CoupledSystem.enable_transport_zline); tensor-product meshes only
+    transport_zline: bool = False
     # z-corridor refinement (z0, z1, dz): uniform dz on [z0, z1], geometric
     # coarsening outside; None: `ny` graded cells
     z_corridor: Optional[tuple] = None
@@ -101,6 +112,8 @@ class StreamerConfig:
     # coarsening out to box_width; None: `nx` graded cells
     r_corridor: Optional[tuple] = None
     newton: NewtonConfig = None
+    # row-equilibrated Newton system (CoupledSystem.row_scaled)
+    row_scaled: bool = False
     # after each accepted step, clamp the species log-densities at
     # ln(density_floor); None disables
     density_floor: Optional[float] = None
@@ -109,12 +122,16 @@ class StreamerConfig:
         if self.stab_mode not in MODES:
             raise ValueError(f"stab_mode {self.stab_mode!r}; options are "
                              f"{MODES}")
+        if self.poisson_precond not in POISSON_PRECONDS:
+            raise ValueError(f"poisson_precond {self.poisson_precond!r}; "
+                             f"options are {POISSON_PRECONDS}")
         if self.newton is None:
             if self.dtype == torch.float32:
                 self.newton = NewtonConfig(rtol=1e-3, max_iter=20,
                                            linear_tol=1e-4,
                                            linear_maxiter=400,
-                                           accept_reduction=3e-2)
+                                           accept_reduction=3e-2,
+                                           host_loop=True)
             else:
                 self.newton = NewtonConfig(rtol=1e-4, max_iter=20,
                                            linear_tol=1e-6,
@@ -345,15 +362,51 @@ def _z_remap_weights(zs: np.ndarray, zd: np.ndarray) -> np.ndarray:
 class StreamerModel:
     SIGN = (1.0, -1.0)  # ion, electron charge signs
 
+    @classmethod
+    def from_file_input(cls, file_input, model: str = "benchmark_model",
+                        mesh: Optional[Mesh] = None, device="cuda",
+                        **config_overrides) -> "StreamerModel":
+        """The model from a reference-format input tree (`speclist.cfg`,
+        `transport_coefficients/*.dat` with `fun:E` expressions,
+        `species/*.cfg`; `fedm-streamer.py:47-48,227-245`): the electron
+        mobility and diffusion expressions and, when the tree has
+        `alpha.dat`, the ionisation expression replace the built-in ones;
+        the species' charge signs replace `SIGN`."""
+        from ..chemistry.parsers import (read_particle_properties,
+                                         read_single_string, read_speclist,
+                                         read_transport_coefficients)
+        from ..model.approximation import modify_approximation_vars
+
+        n_sp, species, prop_files, _ = read_speclist(
+            Path(file_input) / model)
+        masses, signs = read_particle_properties(prop_files, model,
+                                                 file_input=file_input)
+        _, _, species, _, signs = modify_approximation_vars(
+            "LFA", n_sp, species, masses, signs)
+        # the streamer looks transport files up by species name
+        # (`fedm-streamer.py:227-228`)
+        _, mu_y, mu_dep = read_transport_coefficients(
+            species, "mobility", model, file_input=file_input)
+        _, D_y, D_dep = read_transport_coefficients(
+            species, "Diffusion", model, file_input=file_input)
+        kw = dict(config_overrides)
+        if mu_dep[-1] == "fun:E":
+            kw["mu_e_expr"] = mu_y[-1]
+        if D_dep[-1] == "fun:E":
+            kw["D_e_expr"] = D_y[-1]
+        alpha_file = (Path(file_input) / model / "transport_coefficients"
+                      / "alpha.dat")
+        if alpha_file.is_file():
+            kw["alpha_expr"] = read_single_string(alpha_file)
+        obj = cls(StreamerConfig(**kw), mesh=mesh, device=device)
+        obj.SIGN = tuple(signs)
+        return obj
+
     def __init__(self, cfg: StreamerConfig = None, mesh: Optional[Mesh] = None,
                  device="cuda"):
         """`mesh`: a mesh of another model of the same box to share (the
         float64 escalation model shares the float32 one's)."""
         self.cfg = cfg = cfg or StreamerConfig()
-        if cfg.mg_levels <= 1:
-            raise NotImplementedError(
-                "only the structured multigrid Poisson preconditioner "
-                "(mg_levels > 1) is ported")
         self.device = dev = resolve_device(device)
         self.mesh = mesh = make_mesh(cfg) if mesh is None else mesh
         self.space = FunctionSpace(mesh)
@@ -371,6 +424,7 @@ class StreamerModel:
                     [DirichletBC(cathode, 2, 0.0),
                      DirichletBC(anode, 2, cfg.U_w)], device=dev)
         self.system = CoupledSystem(self.batch, self.n_eq, bcs, cfg.newton)
+        self.system.row_scaled = cfg.row_scaled
         self.system.set_cell_kernel(self._cell_kernel)
         # Neumann electron outflow on the electrodes (markers 1 and 2,
         # `fedm-streamer.py:103-104`); axis and outer wall are zero-flux
@@ -378,21 +432,94 @@ class StreamerModel:
                         quad_degree=cfg.quad_degree, axisymmetric=True,
                         dtype=cfg.dtype, device=dev)
         self.system.add_facet_kernel(fb, self._electrode_kernel)
-        self._smg = self._structured_mg()
-        self.system.enable_elliptic_precond(2, self._smg)
 
-    def _structured_mg(self) -> StructuredPoissonMG:
-        """The z-line V-cycle on the Poisson row (canonical tensor-product
-        meshes only)."""
-        if canonical_node_grid(self.space) is None:
-            raise ValueError("the structured multigrid needs a canonical "
-                             "tensor-product mesh")
+        if cfg.transport_zline:
+            if canonical_node_grid(self.space) is None:
+                raise ValueError("transport_zline needs a canonical "
+                                 "tensor-product mesh")
+            # electrons (eq 1); the ions are reaction-only
+            self.system.enable_transport_zline((1,),
+                                               self._node_grid(self.space))
+        self._smg = None
+        if cfg.poisson_precond == "zline":
+            sm = ZLineSmoother(self.system.masked_stiffness_op(2),
+                               self._node_grid(self.space),
+                               self.space.n_dofs,
+                               n_iter=cfg.zline_iters, dtype=cfg.dtype,
+                               device=dev)
+            self.system.enable_elliptic_precond(2, solver=sm.solve)
+        elif cfg.mg_levels > 1 and not self._try_structured_mg():
+            mg = self._geometric_mg()
+            if mg is not None:
+                self.system.enable_elliptic_precond(2, mg=mg)
+
+    @staticmethod
+    def _node_grid(space) -> np.ndarray:
+        """[n_r, n_z] dof-id grid of a tensor-product mesh's space (id =
+        iz * n_r + ir): the z-lines of line relaxation."""
+        nxv = len(np.unique(space.mesh.coords[:, 0]))
+        nzv = space.n_dofs // nxv
+        if nxv * nzv != space.n_dofs:
+            raise ValueError("the mesh is not a tensor-product grid")
+        ix, iz = np.meshgrid(np.arange(nxv), np.arange(nzv), indexing="ij")
+        return iz * nxv + ix
+
+    def _try_structured_mg(self) -> bool:
+        """Install the structured z-line V-cycle (`StructuredPoissonMG`,
+        geometry updated in place by `move_window`) when 'mg-zline' is
+        asked on a canonical tensor-product mesh whose cell counts give at
+        least two levels; returns whether it did."""
+        if (self.cfg.poisson_precond != "mg-zline"
+                or canonical_node_grid(self.space) is None):
+            return False
         xs = np.unique(self.mesh.coords[:, 0])
         zs = np.unique(self.mesh.coords[:, 1])
         mask_grid = np.zeros((len(xs), len(zs)), bool)
         mask_grid[:, 0] = mask_grid[:, -1] = True  # cathode/anode z-lines
-        return StructuredPoissonMG(xs, zs, mask_grid, self.cfg.mg_levels,
-                                   dtype=self.batch.dtype, device=self.device)
+        try:
+            smg = StructuredPoissonMG(xs, zs, mask_grid, self.cfg.mg_levels,
+                                      dtype=self.batch.dtype,
+                                      device=self.device)
+        except ValueError:
+            return False
+        self.system.enable_elliptic_precond(2, mg=smg)
+        self._smg = smg
+        return True
+
+    def _geometric_mg(self) -> Optional[GeometricMultigrid]:
+        """The V-cycle over nested meshes made by 2:1 slicing of the
+        coordinate lines (stencil levels, separable transfers), with point
+        Chebyshev smoothing or, for 'mg-zline', z-line relaxation; None
+        when the mesh does not coarsen to two levels."""
+        cfg = self.cfg
+        spaces = [self.space]
+        xs = np.unique(self.mesh.coords[:, 0])
+        zs = np.unique(self.mesh.coords[:, 1])
+        for _ in range(1, cfg.mg_levels):
+            if (len(xs) - 1) % 2 or (len(zs) - 1) % 2:
+                break
+            if (len(xs) - 1) // 2 < 4 or (len(zs) - 1) // 2 < 4:
+                break
+            xs, zs = xs[::2], zs[::2]
+            m = rectangle_mesh((0, 0), (cfg.box_width, cfg.box_height),
+                               len(xs) - 1, len(zs) - 1)
+            coords = m.coords.copy()
+            coords[:, 0] = np.interp(coords[:, 0], np.unique(coords[:, 0]),
+                                     xs)
+            coords[:, 1] = np.interp(coords[:, 1], np.unique(coords[:, 1]),
+                                     zs)
+            spaces.append(FunctionSpace(Mesh(coords, m.cells)))
+        if len(spaces) < 2:
+            return None
+        masks = [np.isclose(sp.dof_coords[:, 1], 0.0)
+                 | np.isclose(sp.dof_coords[:, 1], cfg.box_height)
+                 for sp in spaces]
+        line_grids = ([self._node_grid(sp) for sp in spaces]
+                      if cfg.poisson_precond == "mg-zline" else None)
+        return GeometricMultigrid(spaces, masks, axisymmetric=True,
+                                  quad_degree=cfg.quad_degree,
+                                  dtype=cfg.dtype, line_grids=line_grids,
+                                  device=self.device)
 
     # -- moving window --------------------------------------------------------
 
@@ -401,7 +528,9 @@ class StreamerModel:
         table (cell and facet quadrature tables, the multigrid's stencils,
         transfers and coarse inverse) for the new window position, with the
         same topology and shapes, and swap them into the running system.
-        The driver and its state survive.
+        The driver and its state survive. Refused when the Poisson row's
+        preconditioner is installed but is not the structured multigrid:
+        its geometry would go stale.
 
         Returns `state` remapped z-linearly per r-line onto the new nodes
         (see `_remap_z`), or None when no state is given."""
@@ -409,6 +538,12 @@ class StreamerModel:
         if cfg.z_tail_cells is None:
             raise ValueError("move_window needs the fixed-topology z-lines "
                              "(StreamerConfig.z_tail_cells)")
+        if self._smg is None and self.system._ell is not None:
+            raise RuntimeError(
+                "move_window would keep a stale Poisson preconditioner: it "
+                "is not the structured multigrid, whose geometry the move "
+                "updates (that needs poisson_precond='mg-zline' and cell "
+                "counts divisible by 2**(mg_levels-1) in r and z)")
         zs_old = np.unique(self.mesh.coords[:, 1])
         xs = np.unique(self.mesh.coords[:, 0])
         new_cfg = dataclasses.replace(cfg, z_corridor=tuple(new_corridor))
@@ -425,7 +560,8 @@ class StreamerModel:
                         axisymmetric=True, dtype=cfg.dtype,
                         device=self.device)
         self.system.update_geometry([batch, fb])
-        self._smg.update_geometry(xs, zs_new)
+        if self._smg is not None:
+            self._smg.update_geometry(xs, zs_new)
         # self.batch is the system's cell batch, updated in place
         self.mesh, self.space, self.cfg = mesh, space, new_cfg
         if state is None:
@@ -532,9 +668,9 @@ class StreamerModel:
     def initial_state(self) -> TimeState:
         """Gaussian ion seed and uniform electrons
         (`fedm-streamer.py:169-172`) and the initial Poisson solve for Phi
-        (`fedm-streamer.py:205-215`), preconditioned by the structured
-        multigrid: plain Jacobi-CG exhausts `maxiter` on anisotropic
-        corridor meshes. Raises RuntimeError when the solve misses its
+        (`fedm-streamer.py:205-215`), preconditioned by the Poisson row's
+        preconditioner (Jacobi without one): plain Jacobi-CG exhausts
+        `maxiter` on anisotropic corridor meshes. Raises RuntimeError when the solve misses its
         tolerance (1e-12 in float64, 1e-6 in float32) by more than 100x
         (at least 1e-5). The state is float64 whatever the compute dtype;
         the solve's (relres, iterations) stay in `initial_poisson`."""
@@ -558,10 +694,12 @@ class StreamerModel:
         anode = np.isclose(z, cfg.box_height)
         g = np.where(anode, cfg.U_w, 0.0)
         tol = 1e-12 if self.batch.dtype == f64 else 1e-6
+        ell = self.system._ell
         phi, relres, iters = solve_poisson(
             self.batch, rho_q, torch.as_tensor(cathode | anode, device=dev),
             torch.as_tensor(g, dtype=self.batch.dtype, device=dev),
-            tol=tol, maxiter=4000, precond=self.system._ell[1])
+            tol=tol, maxiter=4000,
+            precond=None if ell is None else ell[1])
         relres = float(relres)
         self.initial_poisson = (relres, iters)
         if not relres < max(tol * 100, 1e-5):

@@ -1,12 +1,23 @@
-"""Damped Newton-Krylov: one iteration at a time, driven from the host.
+"""Damped Newton-Krylov, one iteration at a time from the host.
 
-Port of the JAX package's `solvers/newton.py` with its host-driven loop
-(`model/system.py` `_step_host`). The Jacobian action is supplied by the
-caller (forward-mode AD of the element kernels, see `model.system`); the
-inner solve is left-preconditioned BiCGStab with a GMRES(m) fallback and
-the optional true-residual rescue, or GMRES(m); the line search is the
-eager backtracking structure (full step probed first); the verdict is
-SNES-style (rtol/atol) with the noise-floor stall acceptance.
+Port of the JAX package's `solvers/newton.py`. Its two drive modes share
+one iteration body (`newton_iteration`):
+
+- `newton_solve`, the host loop (`NewtonConfig.host_loop`, the JAX
+  package's `CoupledSystem._step_host`): a predicted guess re-anchors the
+  rtol target to ||R(0)||, the driver's `dyn_atol` is a further target,
+  and the true-residual rescue runs only on an iteration that did not
+  improve;
+- `newton_krylov`, the whole-solve loop (the JAX package's
+  `lax.while_loop`): the target is rtol of the residual at the given
+  start, and the rescue, when configured, checks every direction.
+
+The Jacobian action is supplied by the caller (forward-mode AD of the
+element kernels, see `model.system`); the inner solve is left-
+preconditioned BiCGStab with a GMRES(m) fallback and the optional
+true-residual rescue, or GMRES(m); the line search is the eager
+backtracking structure (full step probed first); the verdict is
+SNES-style (rtol/atol, stol) with the noise-floor stall acceptance.
 """
 
 from __future__ import annotations
@@ -25,9 +36,10 @@ LINEAR_SOLVERS = ("bicgstab", "gmres")
 
 @dataclass(frozen=True)
 class NewtonConfig:
-    """The JAX package's NewtonConfig fields that the port reads. The port
-    always drives the nonlinear loop from the host (PyTorch runs eagerly),
-    as the JAX package does with `host_loop=True`."""
+    """The JAX package's NewtonConfig fields that the port reads, with the
+    same defaults. `host_loop` picks the drive mode (`CoupledSystem.step`):
+    both run on the host, PyTorch being eager, but they differ in their
+    targets and rescue (module docstring)."""
 
     rtol: float = 1e-4
     atol: float = 0.0
@@ -51,12 +63,18 @@ class NewtonConfig:
     max_halvings: int = 6
     armijo: float = 1e-4
     max_stalls: int = 2
+    # SNES-style step tolerance: an improving full step (lam = 1) whose
+    # update is below stol * ||iterate|| converges; 0 disables
+    stol: float = 0.0
     # accept a stalled (or iteration-capped) solve that reduced ||F|| by at
     # least this factor; 0 disables
     accept_reduction: float = 0.0
     # float64 residual (Newton defect, line-search and convergence norms)
     # with the float32 Jacobian action and Krylov correction
     hi_residual: bool = False
+    # the host loop (`newton_solve`) rather than the whole-solve loop
+    # (`newton_krylov`); the driver predicts a guess only into the former
+    host_loop: bool = False
 
     def __post_init__(self):
         if self.linear_solver not in LINEAR_SOLVERS:
@@ -138,8 +156,9 @@ def newton_iteration(residual: Callable, jacobian_action: Callable,
     evaluation of the same residual: it supplies the Newton right-hand side
     and every line-search norm (the incoming `fnorm` must come from it too).
 
-    Returns (u_new, fnorm_new, linres, improved): `u_new` and `fnorm_new`
-    keep the incoming iterate when the line search finds no reduction.
+    Returns (u_new, fnorm_new, linres, improved, step_ok): `u_new` and
+    `fnorm_new` keep the incoming iterate when the line search finds no
+    reduction; `step_ok` is the stol criterion.
     """
     jvp = jacobian_action(u)
     f = (residual_hi(u).to(u.dtype) if residual_hi is not None
@@ -162,18 +181,24 @@ def newton_iteration(residual: Callable, jacobian_action: Callable,
         h += 1
     # a non-reducing iteration keeps the better iterate (a stall)
     if not (math.isfinite(fnew) and fnew < fnorm):
-        return u, fnorm, linres, False
-    return u + lam * delta, fnew, linres, True
+        return u, fnorm, linres, False, False
+    u_new = u + lam * delta
+    # stol: an improving full step already below stol * ||iterate||; a
+    # damped step's small update means stuck, not converged
+    step_ok = (config.stol > 0 and lam >= 1.0
+               and float(_norm(delta)) <= config.stol * float(_norm(u_new)))
+    return u_new, fnew, linres, True, step_ok
 
 
 def newton_converged(fnorm: float, f0_norm: float, target: float,
                      stalls: int, config: NewtonConfig,
-                     iter_capped: bool = False) -> bool:
-    """Final verdict: ||F|| <= target, or — with `accept_reduction` — an
-    exit on the stall limit or the iteration cap whose kept-best iterate
-    still reduced ||F|| by that factor."""
+                     iter_capped: bool = False,
+                     step_ok: bool = False) -> bool:
+    """Final verdict: ||F|| <= target or the stol criterion, or — with
+    `accept_reduction` — an exit on the stall limit or the iteration cap
+    whose kept-best iterate still reduced ||F|| by that factor."""
     return math.isfinite(fnorm) and (
-        fnorm <= target
+        fnorm <= target or step_ok
         or _stall_accept(fnorm, f0_norm, stalls, config, iter_capped))
 
 
@@ -187,14 +212,17 @@ def newton_solve(residual: Callable, jacobian_action: Callable,
                  delta: torch.Tensor, config: NewtonConfig,
                  precond_builder: Callable,
                  residual_hi: Optional[Callable] = None,
-                 predicted: bool = False, dyn_atol: float = 0.0):
+                 predicted: bool = False, dyn_atol: float = 0.0,
+                 lazy_rescue: bool = True):
     """Solve residual(delta) = 0 from `delta`, one host-driven iteration at
     a time. Returns (delta, NewtonInfo).
 
     `predicted`: `delta` is an extrapolated guess. The rtol target is then
     tied to the unpredicted ||R(0)||, and the solve starts from 0 when the
     guess does not have the smaller residual. `dyn_atol` is a further
-    absolute target (the driver's floor_atol)."""
+    absolute target (the driver's floor_atol). `lazy_rescue`: the
+    true-residual rescue runs only on an iteration that did not improve,
+    taken again with it; else on every direction."""
     res0 = residual if residual_hi is None else residual_hi
     f0 = f_guess = float(_norm(res0(delta)))
     if predicted:
@@ -207,25 +235,37 @@ def newton_solve(residual: Callable, jacobian_action: Callable,
     else:
         target = max(config.rtol * f0, config.atol)
     target = max(target, dyn_atol)
-    # the hot iteration runs without the rescue; a non-improving one is
-    # taken again with it
-    hot = (dataclasses.replace(config, true_res_rescue=0.0)
-           if config.true_res_rescue > 0 else config)
-    fnorm, k, linres = f0, 0, math.inf
+    lazy = lazy_rescue and config.true_res_rescue > 0
+    hot = dataclasses.replace(config, true_res_rescue=0.0) if lazy else config
+    fnorm, k, linres, step_ok = f0, 0, math.inf, False
     stalls = 0 if math.isfinite(f0) else 99
     while (fnorm > target and k < config.max_iter
-           and stalls < config.max_stalls and math.isfinite(fnorm)):
+           and stalls < config.max_stalls and math.isfinite(fnorm)
+           and not step_ok):
         out = newton_iteration(residual, jacobian_action, delta, fnorm, hot,
                                precond_builder, residual_hi)
-        if not out[3] and config.true_res_rescue > 0:
+        if lazy and not out[3]:
             out = newton_iteration(residual, jacobian_action, delta, fnorm,
                                    config, precond_builder, residual_hi)
-        delta, fnorm, linres, improved = out
+        delta, fnorm, linres, improved, step_ok = out
         stalls = 0 if improved else stalls + 1
         k += 1
     capped = k >= config.max_iter
-    converged = newton_converged(fnorm, f0, target, stalls, config, capped)
-    strict = math.isfinite(fnorm) and fnorm <= target
+    converged = newton_converged(fnorm, f0, target, stalls, config, capped,
+                                 step_ok)
+    strict = math.isfinite(fnorm) and (fnorm <= target or step_ok)
     # res0_norm is the residual at the guess, as the JAX package reports it
     return delta, NewtonInfo(converged, k, fnorm, f_guess, linres,
                              converged and not strict)
+
+
+def newton_krylov(residual: Callable, jacobian_action: Callable,
+                  delta: torch.Tensor, config: NewtonConfig,
+                  precond_builder: Callable,
+                  residual_hi: Optional[Callable] = None):
+    """The JAX package's whole-solve loop: the target is max(rtol *
+    ||R(delta)||, atol), with no predictor anchoring and no dynamic
+    target, and the configured rescue checks every direction. Returns
+    (delta, NewtonInfo)."""
+    return newton_solve(residual, jacobian_action, delta, config,
+                        precond_builder, residual_hi, lazy_rescue=False)

@@ -13,10 +13,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..constants import pi
+from ..fem.interpolation import prolong_axis, restrict_axis
 from .linesmoother import tridiag_solve_pcr
+from .stencil import stencil_matvec
 
 
 def p1_stiffness_stencil(xs: np.ndarray, zs: np.ndarray) -> np.ndarray:
@@ -72,32 +73,6 @@ def apply_mask_to_stencil(S: np.ndarray, mask: np.ndarray) -> np.ndarray:
             S[di + 1, dj + 1][mask] = 0.0
     S[1, 1][mask] = 1.0
     return S
-
-
-def stencil_matvec(S: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """9-point stencil matvec in grid layout: X, result [n_i, n_j]."""
-    n_i, n_j = X.shape
-    P = F.pad(X, (1, 1, 1, 1))
-    out = torch.zeros_like(X)
-    for di in (-1, 0, 1):
-        for dj in (-1, 0, 1):
-            out = out + S[di + 1, dj + 1] * P[1 + di:1 + di + n_i,
-                                              1 + dj:1 + dj + n_j]
-    return out
-
-
-def _prolong_axis(U: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Last axis [.., nc] -> [.., 2*nc-1] (linear, physical weights)."""
-    odd = U[..., :-1] * (1.0 - w) + U[..., 1:] * w
-    body = torch.stack([U[..., :-1], odd], dim=-1).flatten(-2)
-    return torch.cat([body, U[..., -1:]], dim=-1)
-
-
-def _restrict_axis(r: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Exact transpose of `_prolong_axis`: [.., 2*nc-1] -> [.., nc]."""
-    odd = r[..., 1::2]
-    return (r[..., ::2] + F.pad((1.0 - w) * odd, (0, 1))
-            + F.pad(w * odd, (1, 0)))
 
 
 class StructuredPoissonMG:
@@ -187,12 +162,12 @@ class StructuredPoissonMG:
         S = self.S[k]
         Z = self._smooth(S, R)
         res = R - stencil_matvec(S, Z)
-        Rc = _restrict_axis(res.T, self.wx[k]).T
-        Rc = _restrict_axis(Rc, self.wz[k])
+        Rc = restrict_axis(res.T, self.wx[k]).T
+        Rc = restrict_axis(Rc, self.wz[k])
         Rc = torch.where(self._masks[k + 1], 0.0, Rc)
         Ec = self._vcycle(k + 1, Rc)
-        E = _prolong_axis(Ec.T, self.wx[k]).T
-        E = _prolong_axis(E, self.wz[k])
+        E = prolong_axis(Ec.T, self.wx[k]).T
+        E = prolong_axis(E, self.wz[k])
         Z = Z + torch.where(self._masks[k], 0.0, E)
         return Z + self._smooth(S, R - stencil_matvec(S, Z))
 

@@ -5,7 +5,9 @@ as a bounded host loop around one attempted step, with the JAX package's
 options (`timestepping/driver.py`):
 
 - attempt: t += dt, Newton solve from u_old, or from the BDF extrapolation
-  u_old + p*(dt/dt_old)*(u_old - u_old1) with `predictor` = p;
+  u_old + p*(dt/dt_old)*(u_old - u_old1) with `predictor` = p when the
+  solving system runs the host loop (`NewtonConfig.host_loop`, not
+  row-scaled);
 - on success: relative l2 step error on the monitored component(s),
   appended to `relative error.log` in the reference's column format;
 - error >= ttol: dt *= 0.5*ttol/error, retry; Newton failure: dt *= 0.5,
@@ -182,7 +184,13 @@ class AdaptiveDriver:
                 if self.verbose:
                     print(f"Escalating precision for t = {t_try} "
                           f"(rejection-rate trigger)", flush=True)
-            if self.predictor > 0.0 and 0.0 < dt_old < 1e29:
+            # predict only into a host-loop solve: `newton_solve`
+            # re-anchors its rtol target for a supplied guess, the
+            # whole-solve loop does not and starts from u_old
+            newton = getattr(solve_sys, "newton", None)
+            pred_ok = (getattr(newton, "host_loop", False)
+                       and not getattr(solve_sys, "row_scaled", False))
+            if self.predictor > 0.0 and pred_ok and 0.0 < dt_old < 1e29:
                 # a new tensor: the system detects a supplied guess by
                 # identity and anchors its rtol target to ||R(0)||
                 ratio = min(dt / dt_old, 2.0)

@@ -29,12 +29,12 @@ from fedm_tpu_torch.solvers.newton import NewtonConfig
 
 SMALL = dict(z_corridor=(7e-3, 8.5e-3, 5e-5), r_corridor=(2e-3, 2e-4),
              z_tail_cells=(12, 12), mg_levels=3, density_floor=1e13)
-# the JAX package's options for what the port always does: the structured
-# multigrid Poisson preconditioner and (below) Newton driven from the host
-JAX_ONLY = dict(poisson_precond="mg-zline")
+# both packages: the structured multigrid Poisson preconditioner and
+# (below) Newton driven from the host, which the bench configuration sets
+PRECOND = dict(poisson_precond="mg-zline")
 NEWTON = dict(rtol=1e-3, max_iter=20, linear_tol=1e-4, linear_maxiter=200,
               accept_reduction=3e-2, hi_residual=True)
-JAX_NEWTON = dict(host_loop=True)
+HOST_LOOP = dict(host_loop=True)
 N_ADVANCES = 3
 FIRST_DT = 1e-13
 
@@ -44,10 +44,11 @@ def run_both(monkeypatch, jax_dtype, torch_dtype):
     per-advance (JAX state, port state as numpy arrays) pairs."""
     # the bench's line-search structure (bench.py sets it the same way)
     monkeypatch.setenv("FEDM_TPU_LS_EAGER", "1")
-    jm = JaxModel(JaxConfig(newton=JaxNewton(**NEWTON, **JAX_NEWTON),
-                            dtype=jax_dtype, **SMALL, **JAX_ONLY))
-    tm = StreamerModel(StreamerConfig(newton=NewtonConfig(**NEWTON),
-                                      dtype=torch_dtype, **SMALL),
+    jm = JaxModel(JaxConfig(newton=JaxNewton(**NEWTON, **HOST_LOOP),
+                            dtype=jax_dtype, **SMALL, **PRECOND))
+    tm = StreamerModel(StreamerConfig(newton=NewtonConfig(**NEWTON,
+                                                          **HOST_LOOP),
+                                      dtype=torch_dtype, **SMALL, **PRECOND),
                        device="cpu")
     jm.system.use_gather_scatter()
     tm.system.use_gather_scatter()

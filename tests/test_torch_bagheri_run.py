@@ -1,10 +1,12 @@
 """The port's entry point `python -m fedm_tpu_torch.bagheri_run`: its
-presets are the JAX tool's (`tools/bagheri_run.py`), options the port does
-not have are refused with the slice that brings them, and a CPU run on a
-small moving window (float32 with the float64 defect, the bagheri14
-solver options) starts from t = 0, moves its window, writes checkpoints
-with meta and logs, and resumes from them: on the same mesh, and across a
-change of the window's dz (top-hat remap, BDF history restarted).
+presets are the JAX tool's (`tools/bagheri_run.py`), --devices > 1 is
+refused with the slice that brings it, every other option of the JAX tool
+builds and steps a small run (the `bagheri14` preset as written, with its
+direct rescue, at full size), and a CPU run on a small moving window
+(float32 with the float64 defect, the bagheri14 solver options) starts
+from t = 0, moves its window, writes checkpoints with meta and logs, and
+resumes from them: on the same mesh, and across a change of the window's
+dz (top-hat remap, BDF history restarted).
 """
 
 import importlib.util
@@ -41,20 +43,67 @@ def test_preset_typo_is_refused(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    (["--preset", "bagheri14"], "slice 10"),
-    (["--direct-rescue"], "slice 10"),
     (["--devices", "2"], "slice 12"),
-    (["--tzline"], "9.4"),
-    (["--row-scaled"], "9.4"),
-    (["--precond", "zline"], "9.4"),
-    (["--precond", "mg"], "slice 11"),
-], ids=["preset-direct-rescue", "direct-rescue", "devices", "tzline",
-        "row-scaled", "zline", "mg"])
+], ids=["devices"])
 def test_options_not_ported_are_refused(argv, slice_, capsys):
     with pytest.raises(SystemExit):
         bagheri_run.parse_args(["--out", "x", *argv])
     err = capsys.readouterr().err
     assert "not ported yet" in err and slice_ in err
+
+
+def test_direct_rescue_needs_no_fallback(capsys):
+    """As the JAX tool asserts: the rescue replaces the float64 model."""
+    with pytest.raises(SystemExit):
+        bagheri_run.parse_args(["--out", "x", "--direct-rescue",
+                                "--fallback"])
+    assert "--direct-rescue replaces" in capsys.readouterr().err
+
+
+# the options the port refused before this slice; each builds its run on
+# the small window and takes one advance
+@pytest.mark.parametrize("argv,check", [
+    (["--preset", "bagheri14"], "direct"),
+    (["--direct-rescue"], "direct"),
+    (["--tzline"], "tzline"),
+    (["--row-scaled"], "row_scaled"),
+    (["--precond", "zline"], "zline"),
+    (["--precond", "mg"], "mg"),
+], ids=["preset-direct-rescue", "direct-rescue", "tzline", "row-scaled",
+        "zline", "mg"])
+def test_ported_options_build_and_step(argv, check, tmp_path):
+    from fedm_tpu_torch.solvers.direct import DirectNewton
+    from fedm_tpu_torch.solvers.multigrid import GeometricMultigrid
+
+    args = bagheri_run.parse_args([*argv, *SMALL_RUN, "--out",
+                                   str(tmp_path)])
+    model, fallback = bagheri_run.build_models(
+        args, bagheri_run.window_corr(1e-2, args.window_span,
+                                      args.window_dz))
+    driver = bagheri_run.build_driver(args, model, fallback)
+    system = model.system
+    assert {"direct": isinstance(driver.fallback_system, DirectNewton),
+            "tzline": system._tzline is not None,
+            "row_scaled": system.row_scaled,
+            "zline": model._smg is None and system._ell is not None,
+            "mg": isinstance(system._ell[1].__self__, GeometricMultigrid),
+            }[check]
+    state = driver.advance(model.initial_state())
+    assert state.n_accepted == 1 and np.isfinite(state.u.numpy()).all()
+
+
+def test_bagheri14_preset_runs_as_written(tmp_path, capsys):
+    """The flagship preset with its direct rescue, at full size (30,305
+    dofs), one step from t = 0."""
+    assert bagheri_run.main(["--preset", "bagheri14", "--device", "cpu",
+                             "--max-steps", "1", "--out",
+                             str(tmp_path)]) == 0
+    log = capsys.readouterr().out
+    assert "mesh: 30305 dofs" in log and "STOPPED" in log
+    assert json.loads(log.split("protocol: ", 1)[1].splitlines()[0])[
+        "direct_rescue"]
+    state = load_checkpoint(tmp_path / "checkpoint.npz", device="cpu")
+    assert state.n_accepted == 1
 
 
 @pytest.mark.parametrize("preset,refused", [

@@ -5,9 +5,8 @@ the graded 16 x 24 streamer with the predictor, `floor_atol`, `fail_dt_cap`,
 `true_res_rescue`, the stall acceptance and a float64 `fallback_system`,
 plus `relative error.log` and `newton.log`.
 
-The JAX side drives Newton from the host (`host_loop=True`, what the port
-always does) with the eager line search (FEDM_TPU_LS_EAGER) and the
-structured multigrid. Tolerances: the controllers are the same float
+Both packages drive Newton from the host (`host_loop=True`) with the
+eager line search (FEDM_TPU_LS_EAGER) and the structured multigrid. Tolerances: the controllers are the same float
 expressions and agree to 1e-15 relative; the advances have the same
 accept/reject sequence and the same escalation and stall-acceptance counts,
 with t, dt and dt_old to 1e-10 relative (measured: at most 4e-12; float64
@@ -43,9 +42,10 @@ from fedm_tpu_torch.timestepping import (adaptive_timestep_H211b,
                                          restart_bdf_history)
 
 GRADED = dict(nx=16, ny=24, density_floor=1e13)
-# the JAX package's options for what the port always does
-JAX_ONLY = dict(poisson_precond="mg-zline")
-JAX_NEWTON = dict(host_loop=True)
+# both packages: the structured multigrid Poisson preconditioner and the
+# host-driven Newton
+PRECOND = dict(poisson_precond="mg-zline")
+HOST_LOOP = dict(host_loop=True)
 
 CONTROLLERS = {"PI34": (adaptive_timestep_PI34,
                         jax_controllers.adaptive_timestep_PI34),
@@ -121,11 +121,12 @@ def _run(package, newton, drv, fb_newton, ttol, n, logdir, start):
             0 if package == "port" else 1]
     if package == "jax":
         def model(nw, **kw):
-            return JaxModel(JaxConfig(newton=JaxNewton(**nw, **JAX_NEWTON),
-                                      **cfg, **JAX_ONLY), **kw)
+            return JaxModel(JaxConfig(newton=JaxNewton(**nw, **HOST_LOOP),
+                                      **cfg, **PRECOND), **kw)
     else:
         def model(nw, **kw):
-            return StreamerModel(StreamerConfig(newton=NewtonConfig(**nw),
+            return StreamerModel(StreamerConfig(newton=NewtonConfig(
+                **nw, **HOST_LOOP), **PRECOND,
                                                 **cfg), device="cpu", **kw)
     m = model(newton)
     if fb_newton:
@@ -152,7 +153,7 @@ def test_advances_with_driver_options(scenario, monkeypatch, tmp_path):
     monkeypatch.setenv("FEDM_TPU_LS_EAGER", "1")
     newton, drv, fb, ttol, n, shows = SCENARIOS[scenario]
     # the JAX model's initial state, handed to both packages
-    start = JaxModel(JaxConfig(**GRADED, **JAX_ONLY)).initial_state()
+    start = JaxModel(JaxConfig(**GRADED, **PRECOND)).initial_state()
     start.dt = 1e-12
     jd, jst = _run("jax", newton, drv, fb, ttol, n, tmp_path, start)
     td, tst = _run("port", newton, drv, fb, ttol, n, tmp_path, start)
@@ -204,8 +205,9 @@ def test_crash_checkpoint_carries_meta(tmp_path):
     from fedm_tpu_torch.io import load_checkpoint
 
     m = StreamerModel(StreamerConfig(
-        newton=NewtonConfig(rtol=1e-12, max_iter=1, linear_maxiter=2),
-        dt_min=2.5e-13, **GRADED), device="cpu")
+        newton=NewtonConfig(rtol=1e-12, max_iter=1, linear_maxiter=2,
+                            **HOST_LOOP),
+        dt_min=2.5e-13, **GRADED, **PRECOND), device="cpu")
     meta = {"z_corridor": (1e-3, 2e-3, 1e-5),
             "protocol": json.dumps({"preset": None})}
     d = m.make_driver(crash_checkpoint=tmp_path / "crash.npz",

@@ -26,8 +26,8 @@ from fedm_tpu_torch.ops.ell_scatter import (ell_scatter_add_,
 
 SMALL = dict(z_corridor=(7e-3, 8.5e-3, 5e-5), r_corridor=(2e-3, 2e-4),
              z_tail_cells=(12, 12), mg_levels=3, density_floor=1e13)
-# the JAX package's option for what the port always does
-JAX_ONLY = dict(poisson_precond="mg-zline")
+# both packages: the structured multigrid Poisson preconditioner
+PRECOND = dict(poisson_precond="mg-zline")
 RTOL = {torch.float64: 1e-14, torch.float32: 1e-6}
 
 
@@ -137,8 +137,9 @@ def models():
     for jdt, tdt in ((jnp.float64, torch.float64),
                      (jnp.float32, torch.float32)):
         jm = JaxModel(JaxConfig(newton=JaxNewton(), dtype=jdt, **SMALL,
-                                **JAX_ONLY))
-        tm = StreamerModel(StreamerConfig(dtype=tdt, **SMALL), device="cpu")
+                                **PRECOND))
+        tm = StreamerModel(StreamerConfig(dtype=tdt, **SMALL, **PRECOND),
+                           device="cpu")
         jm.system.use_gather_scatter()
         tm.system.use_gather_scatter()
         pairs[tdt] = jm, tm

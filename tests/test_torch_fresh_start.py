@@ -38,8 +38,8 @@ from fedm_tpu_torch.solvers import elliptic, linear
 SMALL = dict(z_corridor=(7e-3, 8.5e-3, 5e-5), r_corridor=(2e-3, 2e-4),
              z_tail_cells=(12, 12), mg_levels=3, density_floor=1e13)
 GRADED = dict(nx=16, ny=24)
-# the JAX package's option for what the port always does
-JAX_ONLY = dict(poisson_precond="mg-zline")
+# both packages: the structured multigrid Poisson preconditioner
+PRECOND = dict(poisson_precond="mg-zline")
 PARAMS = (1e-12, 1e-12, 2e-12)  # t, dt, dt_old
 
 
@@ -87,8 +87,8 @@ def test_wall_tail(span, dz, dz_wall, n):
     ids=["graded", "uniform", "corridor", "wall-tail", "corridor-free-tails",
          "graded-z-corridor-r"])
 def test_coordinate_lines_and_mesh(cfg):
-    jc = JaxConfig(**cfg, **JAX_ONLY)
-    tc = StreamerConfig(**cfg)
+    jc = JaxConfig(**cfg, **PRECOND)
+    tc = StreamerConfig(**cfg, **PRECOND)
     np.testing.assert_allclose(port_streamer.z_coords(tc),
                                JaxModel._z_coords(jc, jc.ny), rtol=1e-15,
                                atol=0)
@@ -106,13 +106,16 @@ def test_config_defaults_match():
                  "T_final", "quad_degree", "Em_floor", "stab_diffusion",
                  "stab_mode", "stab_coeff", "mg_levels", "z_corridor",
                  "z_tail_cells", "z_wall_dz", "r_corridor", "density_floor",
-                 "N0"):
+                 "N0", "poisson_precond", "zline_iters", "transport_zline",
+                 "row_scaled"):
         assert getattr(tc, name) == getattr(jc, name), name
-    j32 = JaxConfig(dtype=jnp.float32).newton
-    t32 = StreamerConfig(dtype=torch.float32).newton
-    for name in ("rtol", "max_iter", "linear_tol", "linear_maxiter",
-                 "accept_reduction", "hi_residual", "linear_solver"):
-        assert getattr(t32, name) == getattr(j32, name), name
+    for jdt, tdt in ((jnp.float32, torch.float32), (None, None)):
+        jn = JaxConfig(dtype=jdt).newton
+        tn = StreamerConfig(dtype=tdt).newton
+        for name in ("rtol", "max_iter", "linear_tol", "linear_maxiter",
+                     "accept_reduction", "hi_residual", "linear_solver",
+                     "host_loop", "stol"):
+            assert getattr(tn, name) == getattr(jn, name), (tdt, name)
     with pytest.raises(ValueError):
         StreamerConfig(stab_mode="supg")
 
@@ -148,8 +151,8 @@ def test_cg_follows_the_reference(kw):
 
 @pytest.fixture(scope="module")
 def graded64():
-    jm = JaxModel(JaxConfig(**GRADED, **JAX_ONLY))
-    tm = StreamerModel(StreamerConfig(**GRADED), device="cpu")
+    jm = JaxModel(JaxConfig(**GRADED, **PRECOND))
+    tm = StreamerModel(StreamerConfig(**GRADED, **PRECOND), device="cpu")
     return jm, tm
 
 
@@ -185,8 +188,8 @@ def test_solve_poisson(graded64, precond):
 
 @pytest.mark.parametrize("cfg", [GRADED, SMALL], ids=["graded", "corridor"])
 def test_initial_state_float64(cfg):
-    js = JaxModel(JaxConfig(**cfg, **JAX_ONLY)).initial_state()
-    tm = StreamerModel(StreamerConfig(**cfg), device="cpu")
+    js = JaxModel(JaxConfig(**cfg, **PRECOND)).initial_state()
+    tm = StreamerModel(StreamerConfig(**cfg, **PRECOND), device="cpu")
     ts = tm.initial_state()
     ju = np.asarray(js.u)
     for got in (ts.u, ts.u_old, ts.u_old1):
@@ -199,7 +202,7 @@ def test_initial_state_float64(cfg):
 
 
 def test_initial_state_raises_when_poisson_misses(monkeypatch):
-    tm = StreamerModel(StreamerConfig(**GRADED), device="cpu")
+    tm = StreamerModel(StreamerConfig(**GRADED, **PRECOND), device="cpu")
     real = port_streamer.solve_poisson
     monkeypatch.setattr(port_streamer, "solve_poisson",
                         lambda *a, **kw: real(*a, **{**kw, "maxiter": 2}))
@@ -252,8 +255,9 @@ def _states(space):
                                   dict(stab_diffusion=1.0)],
                          ids=["peclet", "linear", "stab_diffusion"])
 def test_stabilised_residual_and_jv(stab):
-    jm = JaxModel(JaxConfig(**SMALL, **stab, **JAX_ONLY))
-    tm = StreamerModel(StreamerConfig(**SMALL, **stab), device="cpu")
+    jm = JaxModel(JaxConfig(**SMALL, **stab, **PRECOND))
+    tm = StreamerModel(StreamerConfig(**SMALL, **stab, **PRECOND),
+                       device="cpu")
     jm.system.use_gather_scatter()
     tm.system.use_gather_scatter()
     u, u_old, u_old1 = _states(jm.space)
@@ -272,7 +276,7 @@ def test_stabilised_residual_and_jv(stab):
     got = ops.jacobian_action(torch.as_tensor(delta))(torch.as_tensor(v))
     _assert_close_per_eq(got, ref, 1e-12)
     # the stabilisation changes the electron row
-    plain = StreamerModel(StreamerConfig(**SMALL), device="cpu")
+    plain = StreamerModel(StreamerConfig(**SMALL, **PRECOND), device="cpu")
     plain.system.use_gather_scatter()
     F0 = plain.system.operators(torch.as_tensor(u_old),
                                 torch.as_tensor(u_old1),

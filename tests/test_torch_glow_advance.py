@@ -64,7 +64,8 @@ def _models(tree, kind):
                                              host_loop=True)))
     tm = GlowDischargeModel(GlowConfig(file_input=tree, nx=N, ny=N,
                                        dtype=tdt,
-                                       newton=NewtonConfig(**NEWTON[kind])),
+                                       newton=NewtonConfig(**NEWTON[kind],
+                                                           host_loop=True)),
                             device="cpu")
     jm.system.use_gather_scatter()
     tm.system.use_gather_scatter()
@@ -155,10 +156,13 @@ def test_streamer_advance_with_empty_aux_is_unchanged():
     small = dict(z_corridor=(7e-3, 8.5e-3, 5e-5), r_corridor=(2e-3, 2e-4),
                  z_tail_cells=(12, 12), mg_levels=3, density_floor=1e13)
     newton = NewtonConfig(rtol=1e-3, max_iter=20, linear_tol=1e-4,
-                          linear_maxiter=200, accept_reduction=3e-2)
+                          linear_maxiter=200, accept_reduction=3e-2,
+                          host_loop=True)
     outs = []
     for aux in ({}, None):
-        tm = StreamerModel(StreamerConfig(newton=newton, **small),
+        tm = StreamerModel(StreamerConfig(newton=newton,
+                                          poisson_precond="mg-zline",
+                                          **small),
                            device="cpu")
         tm.system.use_gather_scatter()
         ts = tm.initial_state()

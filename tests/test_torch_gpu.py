@@ -166,10 +166,10 @@ def test_ell_scatter_add_raises_on_what_it_does_not_take(cuda):
 def _small_model(device):
     nc = NewtonConfig(rtol=1e-3, max_iter=20, linear_tol=1e-4,
                       linear_maxiter=200, accept_reduction=3e-2,
-                      hi_residual=True)
+                      hi_residual=True, host_loop=True)
     cfg = StreamerConfig(z_corridor=(7e-3, 8.5e-3, 5e-5), newton=nc,
                          r_corridor=(2e-3, 2e-4), z_tail_cells=(12, 12),
-                         mg_levels=3,
+                         mg_levels=3, poisson_precond="mg-zline",
                          dtype=torch.float32, density_floor=1e13)
     model = StreamerModel(cfg, device=device)
     model.system.use_gather_scatter()
@@ -256,7 +256,8 @@ def test_kernel_runs_on_the_tensors_device(cuda):
 def _window_model(device):
     cfg = StreamerConfig(z_corridor=(8.5e-3, 1e-2, 5e-5),
                          r_corridor=(2e-3, 2e-4), z_tail_cells=(12, 12),
-                         mg_levels=3, density_floor=1e13)
+                         mg_levels=3, density_floor=1e13,
+                         poisson_precond="mg-zline")
     model = StreamerModel(cfg, device=device)
     model.system.use_gather_scatter()
     return model
@@ -390,3 +391,57 @@ def test_invert_blocks_5x5_on_cuda(cuda, dtype):
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     scale = ref.abs().amax(dim=(1, 2), keepdim=True)
     assert float(((got.cpu() - ref).abs() / scale).max()) <= tol
+
+
+def test_direct_rescue_step_on_cuda(cuda):
+    """One `DirectNewton` step on the card against the same step on the
+    CPU (float32 probes, the float64 defect): K1's compact form runs in
+    every probe, the iterations and colours are the same, and the states
+    agree to float32 rounding."""
+    from fedm_tpu_torch.solvers.direct import DirectNewton
+
+    gpu, cpu = _small_model(cuda), _small_model("cpu")
+    arrays = _uniform_state(cpu)
+    p = StepParams(1e-12, 1e-12, 1e30)
+    outs = []
+    for model, dev in ((gpu, cuda), (cpu, "cpu")):
+        s = state_from_arrays(arrays, device=dev)
+        dn = DirectNewton(model.system, rtol=1e-3)
+        before = launch_count("ell_scatter_add_")
+        u, info = dn.step(s.u, s.u, s.u_old1, {}, p)
+        assert info.converged and dn.n_factorizations >= 1
+        if dev != "cpu":
+            assert launch_count("ell_scatter_add_") - before >= dn.n_probes
+        outs.append((u.cpu().numpy(), info.iters, dn.n_colors))
+    (ug, kg, cg), (uc, kc, cc) = outs
+    assert (kg, cg) == (kc, cc)
+    # float32 probes rounded on two devices: the fields to 1e-6 of their
+    # magnitude
+    for k in range(3):
+        assert np.abs(ug[:, k] - uc[:, k]).max() <= 1e-6 * np.abs(
+            uc[:, k]).max(), k
+
+
+@pytest.mark.parametrize("option", [
+    dict(poisson_precond="mg"), dict(poisson_precond="zline"),
+    dict(poisson_precond="mg-zline", transport_zline=True),
+    dict(poisson_precond="mg-zline", row_scaled=True)],
+    ids=["mg", "zline", "tzline", "row-scaled"])
+def test_option_step_on_cuda(cuda, option):
+    """One float64 advance with each Poisson-row and transport option on
+    the card against the CPU: the same counts, dt and fields to 1e-8."""
+    cfg = dict(nx=16, ny=24, density_floor=1e13, **option)
+    outs = []
+    for dev in (cuda, "cpu"):
+        model = StreamerModel(StreamerConfig(**cfg), device=dev)
+        model.system.use_gather_scatter()
+        s = model.initial_state()
+        s.dt = 1e-12
+        s = model.make_driver().advance(s)
+        outs.append((s.n_accepted, s.n_rejected, s.dt, s.u.cpu().numpy()))
+    (ag, rg, dg, ug), (ac, rc, dc, uc) = outs
+    assert (ag, rg) == (ac, rc) and ag == 1
+    assert abs(dg - dc) <= 1e-8 * dc
+    for k in range(3):
+        assert np.abs(ug[:, k] - uc[:, k]).max() <= 1e-8 * np.abs(
+            uc[:, k]).max()

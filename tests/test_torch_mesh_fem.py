@@ -25,9 +25,8 @@ from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel
 
 SMALL = dict(z_corridor=(7e-3, 8.5e-3, 5e-5), r_corridor=(2e-3, 2e-4),
              z_tail_cells=(12, 12), mg_levels=3, density_floor=1e13)
-# the JAX package's option for what the port always does: the structured
-# multigrid Poisson preconditioner
-JAX_ONLY = dict(poisson_precond="mg-zline")
+# both packages: the structured multigrid Poisson preconditioner
+PRECOND = dict(poisson_precond="mg-zline")
 BENCH = dict(z_corridor=(0.0, 1.08e-2, 1e-5), r_corridor=(2e-3, 2e-5),
              density_floor=1e13)
 RTOL = 1e-13
@@ -43,8 +42,8 @@ def _close(got, ref, rtol=RTOL):
 
 @pytest.fixture(scope="module")
 def models():
-    jm = JaxModel(JaxConfig(newton=JaxNewton(), **SMALL, **JAX_ONLY))
-    tm = StreamerModel(StreamerConfig(**SMALL), device="cpu")
+    jm = JaxModel(JaxConfig(newton=JaxNewton(), **SMALL, **PRECOND))
+    tm = StreamerModel(StreamerConfig(**SMALL, **PRECOND), device="cpu")
     jm.system.use_gather_scatter()
     tm.system.use_gather_scatter()
     return jm, tm
@@ -55,8 +54,8 @@ def models():
 @pytest.mark.parametrize("cfg", [SMALL, BENCH, dict(BENCH, mg_levels=3)],
                          ids=["small", "bench", "bench-3-levels"])
 def test_coordinate_lines(cfg):
-    jc = JaxConfig(newton=JaxNewton(), **cfg, **JAX_ONLY)
-    tc = StreamerConfig(**cfg)
+    jc = JaxConfig(newton=JaxNewton(), **cfg, **PRECOND)
+    tc = StreamerConfig(**cfg, **PRECOND)
     np.testing.assert_array_equal(port_streamer.z_coords(tc),
                                   JaxModel._z_coords(jc))
     np.testing.assert_array_equal(port_streamer.r_coords(tc),
@@ -175,9 +174,9 @@ def test_float32_batch_and_its_float64_view():
     the float32 values exactly, as JAX's promotion of mixed einsums sees
     them."""
     jm = JaxModel(JaxConfig(newton=JaxNewton(), dtype=jnp.float32, **SMALL,
-                            **JAX_ONLY))
-    tm = StreamerModel(StreamerConfig(dtype=torch.float32, **SMALL),
-                       device="cpu")
+                            **PRECOND))
+    tm = StreamerModel(StreamerConfig(dtype=torch.float32, **SMALL,
+                                      **PRECOND), device="cpu")
     hi = tm.batch.astype(torch.float64)
     assert hi is tm.batch.astype(torch.float64)  # cached view
     for f in ("N", "grads", "scale"):

@@ -21,12 +21,11 @@ from fedm_tpu_torch.solvers.newton import NewtonConfig
 
 SMALL = dict(z_corridor=(7e-3, 8.5e-3, 5e-5), r_corridor=(2e-3, 2e-4),
              z_tail_cells=(12, 12), mg_levels=3, density_floor=1e13)
-# the JAX package's options for what the port always does: the structured
-# multigrid Poisson preconditioner and (below) Newton driven from the host
-JAX_ONLY = dict(poisson_precond="mg-zline")
+# both packages: the structured multigrid Poisson preconditioner and the
+# host-driven Newton
+PRECOND = dict(poisson_precond="mg-zline")
 NEWTON = dict(rtol=1e-3, max_iter=20, linear_tol=1e-4, linear_maxiter=200,
-              accept_reduction=3e-2, hi_residual=True)
-JAX_NEWTON = dict(host_loop=True)
+              accept_reduction=3e-2, hi_residual=True, host_loop=True)
 RTOL = 1e-12
 PARAMS = (1e-12, 1e-12, 2e-12)  # t, dt, dt_old
 
@@ -43,10 +42,11 @@ def _assert_close_per_eq(got, ref, rtol=RTOL):
 
 
 def _models(jdt, tdt):
-    jm = JaxModel(JaxConfig(newton=JaxNewton(**NEWTON, **JAX_NEWTON),
-                            dtype=jdt, **SMALL, **JAX_ONLY))
+    jm = JaxModel(JaxConfig(newton=JaxNewton(**NEWTON),
+                            dtype=jdt, **SMALL, **PRECOND))
     tm = StreamerModel(StreamerConfig(newton=NewtonConfig(**NEWTON),
-                                      dtype=tdt, **SMALL), device="cpu")
+                                      dtype=tdt, **SMALL, **PRECOND),
+                       device="cpu")
     jm.system.use_gather_scatter()
     tm.system.use_gather_scatter()
     return jm, tm

@@ -34,17 +34,16 @@ from fedm_tpu_torch.solvers.newton import NewtonConfig
 
 SPAN, DZ = 1.5e-3, 5e-5
 BASE = dict(r_corridor=(2e-3, 2e-4), z_tail_cells=(12, 12), mg_levels=3,
-            density_floor=1e13)
+            density_floor=1e13, poisson_precond="mg-zline")
 NEWTON = dict(rtol=1e-3, max_iter=20, linear_tol=1e-4, linear_maxiter=200,
-              accept_reduction=3e-2, hi_residual=True)
+              accept_reduction=3e-2, hi_residual=True, host_loop=True)
 Z0, Z1 = 8.5e-3, 7.9e-3
 
 
 def _jax(z0, **kw):
     m = JaxModel(JaxConfig(z_corridor=(z0, z0 + SPAN, DZ),
-                           newton=JaxNewton(**NEWTON, host_loop=True),
-                           dtype=jnp.float32, poisson_precond="mg-zline",
-                           **BASE, **kw))
+                           newton=JaxNewton(**NEWTON),
+                           dtype=jnp.float32, **BASE, **kw))
     m.system.use_gather_scatter()
     m.system.enable_geom_mode()
     return m
@@ -148,9 +147,8 @@ def test_remap_state_restrict():
     """A cross-resolution remap onto a corridor of twice the dz."""
     src_kw = dict(z_corridor=(Z0, Z0 + SPAN, DZ))
     dst_kw = dict(z_corridor=(Z0, Z0 + SPAN, 2 * DZ))
-    cfg = dict(BASE, poisson_precond="mg-zline")
-    jsrc = JaxModel(JaxConfig(**src_kw, **cfg))
-    jdst = JaxModel(JaxConfig(**dst_kw, **cfg))
+    jsrc = JaxModel(JaxConfig(**src_kw, **BASE))
+    jdst = JaxModel(JaxConfig(**dst_kw, **BASE))
     tsrc = StreamerModel(StreamerConfig(**src_kw, **BASE), device="cpu")
     tdst = StreamerModel(StreamerConfig(**dst_kw, **BASE), device="cpu")
     rng = np.random.default_rng(5)

@@ -106,7 +106,8 @@ def main():
     lib = layouts_lib()
     cfg = StreamerConfig(dtype=torch.float32,
                          z_corridor=(0.0, 1.08e-2, 1e-5),
-                         density_floor=1e13, r_corridor=(2e-3, 2e-5))
+                         density_floor=1e13, r_corridor=(2e-3, 2e-5),
+                         poisson_precond="mg-zline")
     model = StreamerModel(cfg, device="cuda")
     fb = model.system.facet_kernels[0][0]
     n_dofs = model.space.n_dofs

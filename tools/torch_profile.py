@@ -11,7 +11,14 @@ One of three paths is set up, `--warmup` advances are run, and
 - `glow`: the argon glow discharge at the `glow50` protocol of
   `python -m fedm_tpu_torch.glow_run` (crossed 64 x 64 mesh, 41,605
   unknowns, the synthetic argon tree in a temporary directory) from t = 0,
-  each advance with its per-advance coefficient update.
+  each advance with its per-advance coefficient update;
+- `rescue`: the window's moved state, advanced by a primary Newton too
+  weak to converge (max_iter 1, linear_maxiter 1), so that the driver
+  escalates to `DirectNewton(rtol=1e-3)`, with its probing and `splu`
+  host seconds (`chip_smoke.py`'s phase rescue);
+- `options`: the JAX package's default StreamerConfig (graded 80 x 160,
+  float64) with `--option` mg (the default), zline, tzline or
+  row_scaled_f32, from t = 0 (`chip_smoke.py`'s phase options).
 
 Prints the card's name and power limit, then per profiled advance its
 wall time, the device-busy time (the union of kernel intervals), the idle
@@ -19,8 +26,8 @@ share, the kernel count, K1's launches by wrapper, table and width and
 its device time, then the kernels and operators that take the most
 device time.
 
-    python tools/torch_profile.py --path {restart,window,glow}
-        [--warmup N] [--advances 1] [--top 25]
+    python tools/torch_profile.py --path {restart,window,glow,rescue,options}
+        [--option mg] [--warmup N] [--advances 1] [--top 25]
 """
 
 import argparse
@@ -41,7 +48,11 @@ from fedm_tpu_torch.ops import ell_scatter as k1  # noqa: E402
 
 # the window's third advance is a long Krylov solve (hundreds of BiCGStab
 # and GMRES iterations): under the profiler it takes more than 6 minutes
-WARMUP = {"restart": 1, "window": 0, "glow": 3}
+WARMUP = {"restart": 1, "window": 0, "glow": 3, "rescue": 0, "options": 0}
+# the options path's configurations (StreamerConfig overrides)
+OPTIONS = {"mg": {}, "zline": {"poisson_precond": "zline"},
+           "tzline": {"poisson_precond": "mg-zline", "transport_zline": True},
+           "row_scaled_f32": {"row_scaled": True, "dtype": torch.float32}}
 
 
 def busy_us(events) -> float:
@@ -60,7 +71,7 @@ def busy_us(events) -> float:
     return total
 
 
-def restart(tmp):
+def restart(tmp, option=None):
     """(state, advance): `advance(state)` takes one adaptive advance."""
     from fedm_tpu_torch.io import load_checkpoint
     from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel
@@ -68,10 +79,11 @@ def restart(tmp):
 
     nc = NewtonConfig(rtol=1e-3, max_iter=20, linear_tol=3e-2,
                       linear_maxiter=400, accept_reduction=3e-2,
-                      hi_residual=True)
+                      hi_residual=True, host_loop=True)
     cfg = StreamerConfig(dtype=torch.float32, newton=nc,
                          z_corridor=(0.0, 1.08e-2, 1e-5),
-                         density_floor=1e13, r_corridor=(2e-3, 2e-5))
+                         density_floor=1e13, r_corridor=(2e-3, 2e-5),
+                         poisson_precond="mg-zline")
     model = StreamerModel(cfg, device="cuda")
     model.system.use_gather_scatter()
     state = load_checkpoint(ROOT / "bench_assets" / "bagheri_dz1e-5_ckpt.npz",
@@ -81,12 +93,13 @@ def restart(tmp):
     return state, lambda s: driver.advance(s, {})
 
 
-def window(tmp):
-    from fedm_tpu_torch.bagheri_run import (build_driver, build_models,
-                                            parse_args, window_corr)
+def _moved_window(tmp):
+    """(args, model, fallback, state): the bagheri14 window at the seed,
+    its initial state moved with the window, each step timed."""
+    from fedm_tpu_torch.bagheri_run import (build_models, parse_args,
+                                            window_corr)
 
-    args = parse_args(["--preset", "bagheri14", "--no-direct-rescue",
-                       "--out", tmp])
+    args = parse_args(["--preset", "bagheri14", "--out", tmp])
     model, fallback = build_models(
         args, window_corr(1e-2, args.window_span, args.window_dz))
     print(f"{model.space.n_dofs} dofs")
@@ -102,11 +115,55 @@ def window(tmp):
         window_corr(9.9e-3, args.window_span, args.window_dz), state)
     torch.cuda.synchronize()
     print(f"move_window {time.perf_counter() - t:.3f} s")
+    return args, model, fallback, state
+
+
+def window(tmp, option=None):
+    from fedm_tpu_torch.bagheri_run import build_driver
+
+    args, model, fallback, state = _moved_window(tmp)
     driver = build_driver(args, model, fallback)
     return state, lambda s: driver.advance(s, {})
 
 
-def glow(tmp):
+def rescue(tmp, option=None):
+    import dataclasses
+
+    from fedm_tpu_torch.solvers.direct import DirectNewton
+    from fedm_tpu_torch.timestepping import AdaptiveDriver
+
+    _, model, _, state = _moved_window(tmp)
+    sys_, cfg = model.system, model.cfg
+    sys_.newton = dataclasses.replace(sys_.newton, max_iter=1,
+                                      linear_maxiter=1, rtol=1e-10,
+                                      accept_reduction=0.0, max_stalls=1)
+    dn = DirectNewton(sys_, rtol=1e-3)
+    driver = AdaptiveDriver(
+        sys_, monitor_idx=1, ttol=cfg.ttol, dt_min=cfg.dt_min,
+        dt_max=cfg.dt_max, post_accept=model.floor_projection(),
+        fail_dt_cap=0.7, predictor=1.0, fallback_system=dn)
+
+    def advance(s):
+        s = driver.advance(s, {})
+        print(f"direct rescue: {dn.n_factorizations} factorizations, "
+              f"{dn.n_probes} probes in {dn.probe_s:.3f} s, splu "
+              f"{dn.factor_s:.3f} s, nnz {dn.nnz}")
+        return s
+
+    return state, advance
+
+
+def options(tmp, option="mg"):
+    from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel
+
+    model = StreamerModel(StreamerConfig(**OPTIONS[option]), device="cuda")
+    model.system.use_gather_scatter()
+    print(f"{model.space.n_dofs} dofs, option {option}")
+    driver = model.make_driver(verbose=True)
+    return model.initial_state(), lambda s: driver.advance(s, {})
+
+
+def glow(tmp, option=None):
     from fedm_tpu_torch.glow_run import build_driver, build_models, parse_args
 
     args = parse_args(["--preset", "glow50", "--out", tmp])
@@ -118,7 +175,8 @@ def glow(tmp):
             lambda s: driver.advance(s, model._update_aux(s.u)))
 
 
-PATHS = {"restart": restart, "window": window, "glow": glow}
+PATHS = {"restart": restart, "window": window, "glow": glow,
+         "rescue": rescue, "options": options}
 
 
 def main():
@@ -130,6 +188,8 @@ def main():
                     help="advances before the profiled ones (default: "
                          + ", ".join(f"{k} {v}" for k, v in WARMUP.items())
                          + ")")
+    ap.add_argument("--option", choices=sorted(OPTIONS), default="mg",
+                    help="the options path's configuration")
     ap.add_argument("--advances", type=int, default=1)
     ap.add_argument("--top", type=int, default=25)
     opts = ap.parse_args()
@@ -141,7 +201,7 @@ def main():
     print(f"card: {card}; path {opts.path}")
     warmup = WARMUP[opts.path] if opts.warmup is None else opts.warmup
     with tempfile.TemporaryDirectory() as tmp:
-        state, advance = PATHS[opts.path](tmp)
+        state, advance = PATHS[opts.path](tmp, opts.option)
         for _ in range(warmup):
             state = advance(state)
         torch.cuda.synchronize()
