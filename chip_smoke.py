@@ -2,7 +2,8 @@
 kernels, holds each against its plain PyTorch version, and drives the port's
 paths at full size: the Bagheri streamer restart that `bench.py` times, the
 streamer from t = 0 on its moving window with the direct rescue, the argon
-glow, and the streamer's option paths.
+glow, the streamer's option paths, and the time-of-flight verification
+runs (1D P2 and 2D axisymmetric) with their entry point.
 
     python3 chip_smoke.py
 
@@ -60,8 +61,26 @@ Phases (each reports its elapsed seconds on stderr):
      "mg-zline" and the row weights held to the JAX numbers (refusing a
      float32 model's M r), and one advance of each of "mg", "zline",
      transport_zline and float32 row_scaled, held to the JAX package's
-     outcome, counts, dt and step error.
-Phase 2 also holds and times K1 at the glow's shapes: the dense cell table
+     outcome, counts, dt and step error;
+  7. tof: the 1D run at full width
+     (TimeOfFlight1D, 4,000 P2 cells, 10 steps of 1e-11 s): its initial
+     state and first float64 residual, its Newton iterations per step and
+     its relative L2 error at 1e-10 held to the JAX package's numbers
+     (tools/port_reference_tof.py); the 2D reference configuration
+     (TimeOfFlight2D(): 40 x 40 P1 axisymmetric, 100 steps of 1e-12 s
+     from 2.5e-9, or its first 20 where less than TOF_2D_FULL_RESERVE_S of
+     the budget is left): Newton iterations per step and the errors at
+     2.52e-9 and 2.6e-9 held to the JAX numbers, and the last within 1e-3
+     of the reference's pinned 0.128997; each tolerance shown to refuse a
+     control;
+     K1's launches
+     counted around each run (its dense forms are the ToF cell scatter);
+     then `python -m fedm_tpu_torch.examples.tof_1d --quick` as a user
+     runs it, its output tree and `relative error.log` checked.
+Phase 2 also holds and times K1 at the time-of-flight tables (float64,
+C = 1: the 1D P2 mesh's 8,001 rows x 2 slots, the 2D P1 mesh's 1,681 x 6),
+both dense forms, with the empty-kernel floor on their grids, and at the
+glow's shapes: the dense cell table
 of the crossed 64 x 64 mesh (8,321 rows x 8 slots) at C = 1 (`project`),
 5 (residual and Jacobian action, float32 and the float64 defect) and 25
 (node blocks).
@@ -73,6 +92,7 @@ passes its time budget. Its last stdout line is
 import collections
 import json
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -270,6 +290,52 @@ OPTION_CONFIGS = {"mg": {}, "zline": {"poisson_precond": "zline"},
 # the rescue's primary Newton, too weak to converge
 RESCUE_WEAK = dict(max_iter=1, linear_maxiter=1, rtol=1e-10,
                    accept_reduction=0.0, max_stalls=1)
+# The time-of-flight runs' reference numbers, computed with the JAX package
+# on the CPU in float64 by:  JAX_PLATFORMS=cpu python
+# tools/port_reference_tof.py  (1d: TimeOfFlight1D(TofConfig(dt=1e-11,
+# T_final=1e-10), n_cells=4000); 2d: TimeOfFlight2D(), the reference
+# configuration, with its error also at 2.52e-9 after 20 steps; quick:
+# `examples/tof_1d.py --quick`'s three errors). Norms are 2-norms of the
+# state u = ln n_e and of the float64 residual of the first step at
+# delta = 0 (t = dt, dt_old = 1e30).
+REF_TOF = {
+    "1d": {"n_dofs": 8001, "initial_state_norm": 1403.3041635429788,
+           "initial_residual_norm": 11501.028852680634,
+           "newton_iterations": [7, 4, 4, 4, 4, 4, 4, 4, 4, 4],
+           "errors": [[1.0000000000000002e-10, 0.0024141631466586162]]},
+    "2d": {"n_dofs": 1681, "newton_iterations": [3] * 100,
+           "errors": [[2.519999999999998e-09, 0.026534805970483872],
+                      [2.5999999999999894e-09, 0.12904273381322798]]},
+    "quick": {"errors": [[1.0000000000000002e-10, 0.002414163146655098],
+                         [1.9999999999999996e-10, 0.0021210207742292054],
+                         [3.0000000000000005e-10, 0.0018570668340233947]]}}
+# the reference CI's pinned 2D error (tests/verification/test_tof.py:14),
+# held within rel 1e-3 as that test holds the JAX package
+TOF_PINNED_L2 = 0.128997491202745
+TOF_PINNED_RTOL = 1e-3
+# The 2D reference configuration runs 100 steps (2.5e-9 -> 2.6e-9). On one
+# H100 at 700 W they took 60-76 s, `tof_1d --quick` 51 s after them, and
+# the phases before the 2D run 330 s (the window's advances vary the most:
+# one slow advance has taken 44-89 s). The phase runs all 100 when at
+# least TOF_2D_FULL_RESERVE_S of the budget remain after the 1D run, else
+# its first 20 (to 2.52e-9), and records which ("2d_steps"); the whole
+# 100-step run also goes through the entry point
+# (`python -m fedm_tpu_torch.examples.tof_2d`; PERF.md, section 6).
+TOF_2D_STEPS_FULL, TOF_2D_STEPS_CUT = 100, 20
+TOF_2D_FULL_RESERVE_S = 200
+# Relative tolerances of the ToF phase, each set from the port's gaps to
+# the JAX numbers (CPU: tools/port_reference_tof.py --port; H100: this
+# phase, NVIDIA H100 80GB HBM3, 700 W) with a margin, and each shown to
+# refuse a control (checked by the phase). Per quantity: the CPU gap, the
+# H100 gap, the limit, the control's gap:
+#   1D initial state norm   1.1e-14  0        1e-13  1.3e-8 (float32 state)
+#   1D first residual norm  7.9e-15  1.1e-14  1e-12  7.4e-6 (in float32)
+#   relative L2 errors      2.2e-13  1.0e-13  2e-12  8.8e-4 (2D; 1D 16.5:
+#                                                    the exact solution one
+#                                                    step early)
+TOF_STATE_RTOL = 1e-13
+TOF_RESIDUAL_RTOL = 1e-12
+TOF_ERROR_RTOL = 2e-12
 T0 = time.perf_counter()
 _phase = "start"
 
@@ -1120,6 +1186,191 @@ def glow(k1, card) -> dict:
     return out
 
 
+def tof_k1_cases(k1, flush) -> list:
+    """K1 at the ToF shapes, float64, C = 1: the dense cell tables of the
+    1D P2 mesh (4,000 cells, 8,001 rows x 2 slots) and the 2D P1 mesh
+    (40 x 40, 1,681 rows x 6 slots), built by the port's own
+    `build_ell_index`; both forms (the new tensor of `project` and the
+    in-place rows=None of every residual, J v and node-block build)
+    against their plain versions, timed cold beside `index_add_`, the
+    empty-kernel floor and the byte bound."""
+    from fedm_tpu_torch.fem import FunctionSpace
+    from fedm_tpu_torch.fem.assembly import build_ell_index
+    from fedm_tpu_torch.mesh import interval_mesh, rectangle_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    spaces = {"tof 1d P2": (FunctionSpace(interval_mesh(4000, 0.0, 1e-3), 2),
+                            (8001, 2)),
+              "tof 2d P1": (FunctionSpace(rectangle_mesh(
+                  (0, 0), (2.5e-4, 5e-4), 40, 40), 1), (1681, 6))}
+    cases = []
+    for name, (space, shape) in spaces.items():
+        idx = torch.as_tensor(build_ell_index(space.cell_dofs, space.n_dofs),
+                              device="cuda")
+        check(tuple(idx.shape) == shape, f"K1 {name}: table "
+                                         f"{tuple(idx.shape)}, not {shape}")
+        dofs = torch.as_tensor(space.cell_dofs.reshape(-1), dtype=torch.long,
+                               device="cuda")
+        flat = torch.randn((space.cell_dofs.size, 1), generator=gen,
+                           device="cuda", dtype=torch.float64)
+        cases.append(k1_case(f"{name} C=1 float64", idx, flat,
+                             k1.ell_scatter, k1.ell_scatter_ref, flush))
+        # the empty-kernel floor of these grids is timed here too
+        cases.append(k1_compact_case(
+            f"{name} dense in place C=1 float64", None, idx, idx, dofs, flat,
+            space.n_dofs, k1, gen, flush))
+    return cases
+
+
+def tof(k1, card) -> dict:
+    """Phase 7: the time-of-flight verification runs on the card, held to
+    the JAX package's numbers (tools/port_reference_tof.py)."""
+    import tempfile
+
+    from fedm_tpu_torch.model.system import StepParams
+    from fedm_tpu_torch.models.tof import (TimeOfFlight1D, TimeOfFlight2D,
+                                           TofConfig)
+
+    out = {"card": card}
+
+    def norm(x):
+        return float(torch.linalg.vector_norm(x.double()))
+
+    def run(model, output_times):
+        k1.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        u, errors = model.run(output_times=output_times)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check(bool(torch.isfinite(u).all()), "non-finite ToF state")
+        return u, errors, wall, k1_launches(k1)
+
+    # 1D at full width: 4,000 P2 cells, 10 steps
+    ref = REF_TOF["1d"]
+    m1 = TimeOfFlight1D(TofConfig(dt=1e-11, T_final=1e-10), n_cells=4000)
+    c = m1.cfg
+    check(m1.space.n_dofs == ref["n_dofs"], f"{m1.space.n_dofs} dofs")
+    check(m1.batch.gather_idx is None and m1.batch._structured is None,
+          "the ToF batch was switched to another scatter layout")
+    u0 = m1.initial_state()
+    p0 = StepParams(c.t0 + c.dt, c.dt, 1e30)
+    out["1d_initial_state_rel"] = held_to(
+        "tof 1d initial state norm", [norm(u0)],
+        [ref["initial_state_norm"]], [TOF_STATE_RTOL])
+    out["1d_initial_state_f32_rel"] = refused_by(
+        "tof 1d initial state rounded to float32", [norm(u0.float())],
+        [ref["initial_state_norm"]], [TOF_STATE_RTOL])
+    F = m1.system.residual(u0, u0, u0, p0)
+    out["1d_initial_residual_rel"] = held_to(
+        "tof 1d first f64 residual norm", [norm(F)],
+        [ref["initial_residual_norm"]], [TOF_RESIDUAL_RTOL])
+    out["1d_initial_residual_f32_rel"] = refused_by(
+        "tof 1d first f32 residual norm",
+        [norm(m1.system.residual(u0, u0, u0, p0, torch.float32))],
+        [ref["initial_residual_norm"]], [TOF_RESIDUAL_RTOL])
+    with mock.patch("fedm_tpu_torch.fem.assembly.ell_scatter_add_",
+                    k1.ell_scatter_add_ref):
+        F_plain = m1.system.residual(u0, u0, u0, p0)
+    out["1d_residual_k1_vs_plain"] = norm(F - F_plain) / norm(F_plain)
+    check(out["1d_residual_k1_vs_plain"] <= 1e-13,
+          "K1 in the ToF residual disagrees with the plain scatter")
+    u, errors, wall, launches = run(m1, [c.T_final])
+    iters = [int(i.iters) for i in m1.step_infos]
+    out.update({"1d_s": wall, "1d_newton_iterations": iters,
+                "1d_errors": errors, "1d_launches": launches})
+    log(f"tof 1d: 10 steps in {wall:.2f} s, Newton iterations {iters} "
+        f"(JAX {ref['newton_iterations']}), K1 {launches}")
+    check(iters == ref["newton_iterations"],
+          "tof 1d: Newton iterations differ from the JAX package's")
+    out["1d_error_rel"] = held_to("tof 1d relative L2 error at 1e-10",
+                                  [e for _, e in errors],
+                                  [e for _, e in ref["errors"]],
+                                  [TOF_ERROR_RTOL])
+    out["1d_error_one_step_early_rel"] = refused_by(
+        "tof 1d error against the exact solution one step early",
+        [m1.relative_l2_error(u, errors[-1][0] - c.dt)],
+        [ref["errors"][-1][1]], [TOF_ERROR_RTOL])
+    check(launches["ell_scatter_add_"] > 0 and launches["ell_scatter"] > 0,
+          "tof 1d never launched K1's dense forms")
+    del m1, u, u0, F, F_plain
+
+    # 2D: the reference configuration, or its first 20 steps where the
+    # budget left is short
+    ref = REF_TOF["2d"]
+    left = BUDGET_S - (time.perf_counter() - T0)
+    n2 = (TOF_2D_STEPS_FULL if left >= TOF_2D_FULL_RESERVE_S
+          else TOF_2D_STEPS_CUT)
+    log(f"tof 2d: {left:.0f} s of the budget left: {n2} steps")
+    cfg2 = TofConfig(t0=2.5e-9, T_final=2.5e-9 + n2 * 1e-12, dt=1e-12)
+    m2 = TimeOfFlight2D(cfg2)
+    check(m2.space.n_dofs == ref["n_dofs"], f"{m2.space.n_dofs} dofs")
+    outs = [t for t, _ in ref["errors"][:1 + (n2 == TOF_2D_STEPS_FULL)]]
+    u, errors, wall, launches = run(m2, outs)
+    iters = [int(i.iters) for i in m2.step_infos]
+    out.update({"2d_steps": n2, "2d_s": wall,
+                "2d_newton_iterations": iters, "2d_errors": errors,
+                "2d_launches": launches})
+    log(f"tof 2d: {n2} steps in {wall:.2f} s, Newton iterations "
+        f"{collections.Counter(iters)}, K1 {launches}")
+    check(iters == ref["newton_iterations"][:n2],
+          "tof 2d: Newton iterations differ from the JAX package's")
+    out["2d_error_rel"] = held_to(
+        "tof 2d relative L2 errors", [e for _, e in errors],
+        [e for _, e in ref["errors"][:len(errors)]],
+        [TOF_ERROR_RTOL] * len(errors))
+    out["2d_error_one_step_early_rel"] = refused_by(
+        "tof 2d error against the exact solution one step early",
+        [m2.relative_l2_error(u, errors[-1][0] - cfg2.dt)],
+        [ref["errors"][len(errors) - 1][1]], [TOF_ERROR_RTOL])
+    if n2 == TOF_2D_STEPS_FULL:
+        out["2d_pinned_rel"] = _rel([errors[-1][1]], [TOF_PINNED_L2])[0]
+        log(f"tof 2d error {errors[-1][1]!r} vs the reference's pinned "
+            f"{TOF_PINNED_L2}: rel. {out['2d_pinned_rel']:.3e}")
+        check(out["2d_pinned_rel"] <= TOF_PINNED_RTOL,
+              "tof 2d error off the reference's pinned value")
+    check(launches["ell_scatter_add_"] > 0 and launches["ell_scatter"] > 0,
+          "tof 2d never launched K1's dense forms")
+    del m2, u
+
+    # the entry point, as a user runs it, on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fedm_tpu_torch.examples.tof_1d",
+             "--quick", "-o", tmp], capture_output=True, text=True,
+            cwd=ROOT, timeout=max(60, BUDGET_S - (time.perf_counter() - T0)))
+        out["quick_s"] = time.perf_counter() - t
+        check(proc.returncode == 0, f"tof_1d --quick failed: {proc.stderr}")
+        tree = sorted(str(p.relative_to(tmp)) for p in Path(tmp).rglob("*")
+                      if p.is_file())
+        check(tree == [
+            "mesh/mesh info.txt", "mesh/mesh.vtu", "model.log",
+            "number density/analytical solution/analytical solution.pvd",
+            "number density/analytical solution/"
+            "analytical solution000000.vtu",
+            "number density/electrons/electrons.pvd",
+            "number density/electrons/electrons000000.vtu",
+            "relative error.log"], f"tof_1d --quick wrote {tree}")
+        lines = (Path(tmp) / "relative error.log").read_text().splitlines()
+        rows = [re.fullmatch(r"h_max = (\S+)\t dt = (\S+)\t "
+                             r"relative_error = (\S+)", line)
+                for line in lines]
+        check(len(rows) == 3 and all(
+            r is not None and abs(float(r[1]) / 2.5e-6 - 1) < 1e-12
+            and r[2] == "1e-11" for r in rows),
+            f"relative error.log: {lines}")
+        got = [float(r[3]) for r in rows]
+    out["quick_errors"] = got
+    out["quick_error_rel"] = held_to(
+        "tof_1d --quick relative error.log", got,
+        [e for _, e in REF_TOF["quick"]["errors"]], [TOF_ERROR_RTOL] * 3)
+    log(f"tof_1d --quick on the card in {out['quick_s']:.2f} s (a process "
+        f"of its own, the kernel build loaded from the cache): "
+        f"{proc.stdout.strip().splitlines()[-1]}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1221,6 +1472,9 @@ def main() -> int:
         glow_cases.append(k1_compact_case(
             f"glow cell dense in place C={C} {str(dtype)[6:]}", None, g_idx,
             g_idx, g_dofs, flat, gmesh.n_verts, k1, gen, flush))
+    # K1 at the time-of-flight tables (phase 7's paths), timed here while
+    # the profiler's traces are whole
+    tof_cases = tof_k1_cases(k1, flush)
     del flush
 
     phase("3 main path")
@@ -1297,6 +1551,9 @@ def main() -> int:
 
     phase("6 options")
     options_out = options(k1, card)
+
+    phase("7 tof")
+    tof_out = tof(k1, card)
     signal.alarm(0)
     option_launches = collections.Counter()
     for rec in options_out["advance"].values():
@@ -1311,15 +1568,19 @@ def main() -> int:
                      + sum(window["launches"].values())
                      + sum(rescue_out["launches"].values())
                      + sum(glow_out["launches"].values())
-                     + sum(option_launches.values())),
+                     + sum(option_launches.values())
+                     + sum(tof_out["1d_launches"].values())
+                     + sum(tof_out["2d_launches"].values())),
         "launches_by_path": {"restart": launches,
                              "fresh_window": window["launches"],
                              "rescue": rescue_out["launches"],
                              "glow": glow_out["launches"],
-                             "options": dict(option_launches)},
+                             "options": dict(option_launches),
+                             "tof_1d": tof_out["1d_launches"],
+                             "tof_2d": tof_out["2d_launches"]},
         "glow_launches_by_shape": glow_out["launches_by_shape"],
-        "max_abs_err": max(c["max_abs_err"]
-                           for c in cases + compact + glow_cases),
+        "max_abs_err": max(c["max_abs_err"] for c in
+                           cases + compact + glow_cases + tof_cases),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
         "library_ms": main_case["library_ms"],
@@ -1329,7 +1590,7 @@ def main() -> int:
         # traces (each then ~4 us high, see devtime.event_ms); 0 in a
         # healthy run
         "event_timed": devtime.event_fallbacks,
-        "cases": cases + compact + glow_cases}]
+        "cases": cases + compact + glow_cases + tof_cases}]
     print(json.dumps({
         "kernels": kernels,
         "main_path": {"unknowns": unknowns,
@@ -1339,7 +1600,8 @@ def main() -> int:
                       "peak_bytes": peak, "residual_norms": norms,
                       "residual_rel_to_jax": rel},
         "fresh_window": window, "rescue": rescue_out, "glow": glow_out,
-        "options": options_out}))
+        "options": options_out,
+        "tof": tof_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

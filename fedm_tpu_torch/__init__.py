@@ -14,3 +14,7 @@ hand-written CUDA kernel here (`csrc/`, built with nvcc at first use).
 """
 
 __version__ = "0.1.0"
+
+from . import constants  # noqa: E402
+
+__all__ = ["constants"]

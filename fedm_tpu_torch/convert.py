@@ -5,7 +5,9 @@ t, dt, dt_old, max_error and the step counters) and the static geometry.
 The geometry is a pure function of the model configuration and is rebuilt
 by each package from the same configuration; the state moves between them
 as numpy arrays — as `fedm_tpu.io.checkpoint.load_checkpoint` or a JAX
-`TimeState` (through `np.asarray`) hands them out.
+`TimeState` (through `np.asarray`) hands them out. A fixed-dt run such as
+the time-of-flight models keeps one field, u [n_dofs, n_eq] (P1 or P2
+dofs), which `field_from_array` moves (`.cpu().numpy()` moves it back).
 """
 
 from __future__ import annotations
@@ -21,6 +23,13 @@ from .timestepping.driver import TimeState
 FIELDS = ("u", "u_old", "u_old1")
 SCALARS = ("t", "dt", "dt_old")
 COUNTERS = ("n_accepted", "n_rejected")
+
+
+def field_from_array(u, device="cuda") -> torch.Tensor:
+    """One state field, e.g. a time-of-flight run's u [n_dofs, 1], as a
+    float64 tensor on `device`."""
+    return torch.tensor(np.asarray(u, np.float64),
+                        device=resolve_device(device))
 
 
 def state_from_arrays(src, device="cuda") -> TimeState:

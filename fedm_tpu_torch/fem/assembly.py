@@ -37,14 +37,46 @@ def _scale_like(scale: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def _inverse_jacobians(x_cells: np.ndarray):
-    """Affine maps of triangles x_cells [n, 3, 2]: (detJ [n], invJ [n,2,2])."""
+    """Affine maps of simplices x_cells [n, dim+1, dim]: (detJ [n],
+    invJ [n, dim, dim]), intervals and triangles."""
     x0 = x_cells[:, 0]
-    J = np.stack([x_cells[:, 1] - x0, x_cells[:, 2] - x0], axis=2)
+    dim = x_cells.shape[2]
+    J = np.stack([x_cells[:, i + 1] - x0 for i in range(dim)], axis=2)
+    if dim == 1:
+        detJ = J[:, 0, 0]
+        return detJ, (1.0 / detJ)[:, None, None]
     detJ = J[:, 0, 0] * J[:, 1, 1] - J[:, 0, 1] * J[:, 1, 0]
     invJ = np.stack([np.stack([J[:, 1, 1], -J[:, 0, 1]], axis=1),
                      np.stack([-J[:, 1, 0], J[:, 0, 0]], axis=1)],
                     axis=1) / detJ[:, None, None]
     return detJ, invJ
+
+
+def _physical_tables(space: FunctionSpace, ref_pts: np.ndarray,
+                     x_cells: np.ndarray):
+    """Shape values, physical gradients and quadrature points of the cells
+    x_cells [n, dim+1, dim] at reference points ref_pts [n_q, dim] (one
+    set for every cell) or [n, n_q, dim] (per cell): (N [(n,) n_q,
+    n_local], grads [n, g, n_local, dim], x_q [n, n_q, dim], detJ [n]),
+    with g = 1 for affine P1 (the gradients do not vary over the cell)
+    and g = n_q otherwise."""
+    per_cell = ref_pts.ndim == 3
+    flat = ref_pts.reshape(-1, ref_pts.shape[-1])
+    N, dN = tabulate(space.cell_type, space.degree, flat)
+    Nv, _ = tabulate(space.cell_type, 1, flat)
+    detJ, invJ = _inverse_jacobians(x_cells)
+    if per_cell:
+        n, n_q = ref_pts.shape[:2]
+        N = N.reshape(n, n_q, -1)
+        dN = dN.reshape(n, n_q, N.shape[-1], -1)
+        grads = np.einsum("cqak,ckd->cqad", dN, invJ)
+        x_q = np.einsum("cqa,cad->cqd", Nv.reshape(n, n_q, -1), x_cells)
+    else:
+        grads = np.einsum("qak,ckd->cqad", dN, invJ)
+        x_q = np.einsum("qa,cad->cqd", Nv, x_cells)
+    if space.degree == 1:
+        grads = grads[:, :1]
+    return N, grads, x_q, detJ
 
 
 def build_ell_index(dofs: np.ndarray, n_dofs: int) -> np.ndarray:
@@ -175,20 +207,24 @@ class _Batch:
 
 
 class CellBatch(_Batch):
-    """Cell-integral data for one P1 space + quadrature.
+    """Cell-integral data for one space (P1/P2, intervals or triangles)
+    and quadrature.
 
     Device tensors:
-      N      [n_q, 3]              reference shape values
-      grads  [n_cells, 1, 3, 2]    physical shape gradients (affine P1)
-      scale  [n_cells, n_q]        w_q * |detJ| * (2*pi*r | 1)
-      h      [n_cells]             cell size (greatest vertex distance)
-      h_dir  [n_cells, 2]          bounding-box extents, for the
-                                   directional cell size of upwinding
-      dofs   [n_cells, 3]
+      N      [n_q, n_local]              reference shape values
+      grads  [n_cells, g, n_local, dim]  physical shape gradients (g = 1
+                                         for affine P1, n_q otherwise)
+      scale  [n_cells, n_q]              w_q * |detJ| * (2*pi*r | 1)
+      x_q    [n_cells, n_q, dim]         physical quadrature points
+      h      [n_cells]                   cell size (greatest vertex
+                                         distance)
+      h_dir  [n_cells, dim]              bounding-box extents, for the
+                                         directional cell size of upwinding
+      dofs   [n_cells, n_local]
     """
 
-    _FLOAT_FIELDS = ("N", "grads", "scale", "h", "h_dir")
-    _GEOM_FIELDS = ("grads", "scale", "h", "h_dir")
+    _FLOAT_FIELDS = ("N", "grads", "scale", "x_q", "h", "h_dir")
+    _GEOM_FIELDS = ("grads", "scale", "x_q", "h", "h_dir")
 
     def __init__(self, space: FunctionSpace, quad_degree: int = 4,
                  axisymmetric: bool = False, dtype=None, *, device):
@@ -198,17 +234,14 @@ class CellBatch(_Batch):
         self.axisymmetric = axisymmetric
         self.dtype = dtype
         self.device = torch.device(device)
-        pts, wts = cell_quadrature(quad_degree)
-        N, dN = tabulate(pts)
+        pts, wts = cell_quadrature(space.cell_type, quad_degree)
         self.n_q = len(wts)
         self.n_local = space.n_local
         self.n_dofs = space.n_dofs
+        self.dim = mesh.dim
 
-        x_cells = mesh.coords[mesh.cells]
-        detJ, invJ = _inverse_jacobians(x_cells)
-        # physical gradients, q-independent for affine P1
-        grads = np.einsum("qak,ckd->cqad", dN, invJ)[:, :1]
-        x_q = np.einsum("qa,cad->cqd", N, x_cells)
+        N, grads, x_q, detJ = _physical_tables(space, pts,
+                                               mesh.coords[mesh.cells])
         scale = wts[None, :] * np.abs(detJ)[:, None]
         if axisymmetric:
             scale = scale * (2.0 * pi * x_q[:, :, 0])
@@ -220,6 +253,7 @@ class CellBatch(_Batch):
         self.N = put(N)
         self.grads = put(grads)
         self.scale = put(scale)
+        self.x_q = put(x_q)
         self.h = put(mesh.cell_h())
         self.h_dir = put(mesh.cell_extents())
         self.dofs_np = space.cell_dofs
@@ -231,6 +265,8 @@ class CellBatch(_Batch):
         """Engage slice/pad gather/scatter if the cells follow the canonical
         `rectangle_mesh` layout; returns whether it engaged."""
         d = self.dofs_np
+        if self.space.degree != 1 or d.shape[1] != 3:
+            return False  # P1 triangles only, as in the JAX package
         nx = int(d[0, 2]) - 2  # cell 0 = (ll=0, lr=1, ur=nx+2)
         n_cells = d.shape[0]
         if nx <= 0 or n_cells % (2 * nx):
@@ -256,7 +292,7 @@ class CellBatch(_Batch):
     # -- evaluation on gathered element values -------------------------------
 
     def gather(self, u: torch.Tensor) -> torch.Tensor:
-        """Nodal [n_dofs, ...] -> element values [n_cells, 3, ...]."""
+        """Nodal [n_dofs, ...] -> element values [n_cells, n_local, ...]."""
         if self._structured is None:
             return u[self.dofs]
         nx, ny = self._structured
@@ -268,42 +304,52 @@ class CellBatch(_Batch):
         return torch.cat(blocks, dim=0)
 
     def value(self, u_e: torch.Tensor) -> torch.Tensor:
-        """[n_cells, 3, ...] -> values at quadrature points [n_cells, n_q, ...]."""
+        """[n_cells, n_local, ...] -> values at quadrature points
+        [n_cells, n_q, ...]."""
         return torch.einsum("qa,ca...->cq...", self.N, u_e)
 
     def grad(self, u_e: torch.Tensor) -> torch.Tensor:
-        """[n_cells, 3, ...] -> gradients [n_cells, n_q, 2, ...]."""
+        """[n_cells, n_local, ...] -> gradients [n_cells, n_q, dim, ...]."""
         g = torch.einsum("cqad,ca...->cqd...", self.grads, u_e)
         return g.expand((g.shape[0], self.n_q) + tuple(g.shape[2:]))
 
     def mass(self, s: torch.Tensor) -> torch.Tensor:
-        """Integral of s * phi_a: s [n_cells, n_q, ...] -> [n_cells, 3, ...]."""
+        """Integral of s * phi_a: s [n_cells, n_q, ...] ->
+        [n_cells, n_local, ...]."""
         return torch.einsum("qa,cq...->ca...", self.N,
                             s * _scale_like(self.scale, s))
 
     def stiffness(self, G: torch.Tensor) -> torch.Tensor:
-        """Integral of G . grad phi_a: G [n_cells, n_q, 2, ...] -> [n_cells, 3, ...]."""
-        Gq = (G * _scale_like(self.scale, G)).sum(dim=1)
-        return torch.einsum("cad,cd...->ca...", self.grads[:, 0], Gq)
+        """Integral of G . grad phi_a: G [n_cells, n_q, dim, ...] ->
+        [n_cells, n_local, ...]."""
+        Gs = G * _scale_like(self.scale, G)
+        if self.grads.shape[1] == 1:
+            return torch.einsum("cad,cd...->ca...", self.grads[:, 0],
+                                Gs.sum(dim=1))
+        return torch.einsum("cqad,cqd...->ca...", self.grads, Gs)
 
 
 class FacetBatch(_Batch):
-    """Boundary-facet integral data for the facets carrying `markers`,
-    evaluated through the adjacent cell's basis restricted to the facet (so
-    normal gradients come from the same gathered values).
+    """Boundary-facet integral data for the facets carrying `markers`
+    (every boundary facet with None), evaluated through the adjacent
+    cell's basis restricted to the facet (so normal gradients come from
+    the same gathered values). A facet is a point in 1D, an edge in 2D.
 
     Device tensors:
-      N       [n_f, n_q, 3]        cell shape values at facet quad points
-      grads   [n_f, 1, 3, 2]       cell shape gradients
-      scale   [n_f, n_q]           w_q * |facet| * (2*pi*r | 1)
-      normal  [n_f, 2]             outward unit normals
-      dofs    [n_f, 3]             adjacent-cell dofs
+      N       [n_f, n_q, n_local]        cell shape values at facet quad
+                                         points
+      grads   [n_f, g, n_local, dim]     cell shape gradients (g as in
+                                         CellBatch)
+      scale   [n_f, n_q]                 w_q * |facet| * (2*pi*r | 1)
+      normal  [n_f, dim]                 outward unit normals
+      x_q     [n_f, n_q, dim]
+      dofs    [n_f, n_local]             adjacent-cell dofs
     """
 
-    _FLOAT_FIELDS = ("N", "grads", "scale", "normal")
+    _FLOAT_FIELDS = ("N", "grads", "scale", "normal", "x_q")
     _GEOM_FIELDS = _FLOAT_FIELDS
 
-    def __init__(self, space: FunctionSpace, markers: list,
+    def __init__(self, space: FunctionSpace, markers=None,
                  quad_degree: int = 4, axisymmetric: bool = False,
                  dtype=None, *, device):
         dtype = torch.float64 if dtype is None else dtype
@@ -311,36 +357,43 @@ class FacetBatch(_Batch):
         self.space = space
         self.dtype = dtype
         self.device = torch.device(device)
-        sel = np.where(np.isin(mesh.facet_markers, markers))[0]
-        self.n_facets = n_f = len(sel)
+        if markers is None:
+            sel = np.arange(len(mesh.boundary_facets))
+        else:
+            if isinstance(markers, int):
+                markers = [markers]
+            sel = np.where(np.isin(mesh.facet_markers, markers))[0]
+        self.n_facets = len(sel)
         self.n_local = space.n_local
         self.n_dofs = space.n_dofs
+        self.dim = dim = mesh.dim
 
         facets = mesh.boundary_facets[sel]
         cells_adj = mesh.boundary_cells[sel]
         cell_verts = mesh.cells[cells_adj]
-        spts, wts = facet_quadrature(quad_degree)
-        self.n_q = n_q = len(wts)
+        spts, wts = facet_quadrature(dim, quad_degree)
+        self.n_q = len(wts)
 
         # facet quadrature points in the adjacent cell's reference coords
-        ref_verts = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
+        ref_verts = (np.array([[0.0], [1.0]]) if dim == 1 else
+                     np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]]))
         local_idx = np.stack([np.argmax(cell_verts == facets[:, j:j + 1],
-                                        axis=1) for j in range(2)], axis=1)
-        a_ref = ref_verts[local_idx[:, 0]]
-        b_ref = ref_verts[local_idx[:, 1]]
-        s = spts[:, 0]
-        ref_q = (a_ref[:, None, :] * (1.0 - s)[None, :, None]
-                 + b_ref[:, None, :] * s[None, :, None])
-        measure = np.linalg.norm(mesh.coords[facets[:, 1]]
-                                 - mesh.coords[facets[:, 0]], axis=1)
+                                        axis=1)
+                              for j in range(facets.shape[1])], axis=1)
+        if dim == 1:
+            ref_q = ref_verts[local_idx[:, 0]][:, None, :]
+            measure = np.ones(self.n_facets)
+        else:
+            a_ref = ref_verts[local_idx[:, 0]]
+            b_ref = ref_verts[local_idx[:, 1]]
+            s = spts[:, 0]
+            ref_q = (a_ref[:, None, :] * (1.0 - s)[None, :, None]
+                     + b_ref[:, None, :] * s[None, :, None])
+            measure = np.linalg.norm(mesh.coords[facets[:, 1]]
+                                     - mesh.coords[facets[:, 0]], axis=1)
 
-        N_flat, dN_flat = tabulate(ref_q.reshape(-1, 2))
-        N = N_flat.reshape(n_f, n_q, 3)
-        dN = dN_flat.reshape(n_f, n_q, 3, 2)
-        x_cells = mesh.coords[cell_verts]
-        _, invJ = _inverse_jacobians(x_cells)
-        grads = np.einsum("fqak,fkd->fqad", dN, invJ)[:, :1]
-        x_q = np.einsum("fqa,fad->fqd", N, x_cells)
+        N, grads, x_q, _ = _physical_tables(space, ref_q,
+                                            mesh.coords[cell_verts])
         scale = wts[None, :] * measure[:, None]
         if axisymmetric:
             scale = scale * (2.0 * pi * x_q[:, :, 0])
@@ -353,6 +406,7 @@ class FacetBatch(_Batch):
         self.grads = put(grads)
         self.scale = put(scale)
         self.normal = put(mesh.facet_normals()[sel])
+        self.x_q = put(x_q)
         self.dofs_np = space.cell_dofs[cells_adj]
         self.dofs = torch.as_tensor(self.dofs_np, device=self.device)
 
@@ -367,19 +421,36 @@ class FacetBatch(_Batch):
         return g.expand((g.shape[0], self.n_q) + tuple(g.shape[2:]))
 
     def mass(self, s: torch.Tensor) -> torch.Tensor:
-        """Boundary integral of s * phi_a: [n_f, n_q, ...] -> [n_f, 3, ...]."""
+        """Boundary integral of s * phi_a: [n_f, n_q, ...] ->
+        [n_f, n_local, ...]."""
         return torch.einsum("fqa,fq...->fa...", self.N,
                             s * _scale_like(self.scale, s))
 
 
+def interpolate(fn, space: FunctionSpace, dtype=None, *,
+                device) -> torch.Tensor:
+    """Nodal interpolation: `fn(dof_coords) -> values` (or a number)
+    evaluated in float64 numpy at the dof coordinates, as a [n_dofs]
+    tensor on `device` (dolfin's `interpolate(Expression, V)` for
+    Lagrange spaces)."""
+    dtype = torch.float64 if dtype is None else dtype
+    if callable(fn):
+        vals = np.asarray(fn(space.dof_coords))
+        if vals.ndim == 0:
+            vals = np.full(space.n_dofs, float(vals))
+    else:
+        vals = np.full(space.n_dofs, float(fn))
+    return torch.as_tensor(vals, dtype=dtype, device=torch.device(device))
+
+
 def project(s_q: torch.Tensor, batch: CellBatch, lumped: bool = False,
             tol: float = None, maxiter: int = 200) -> torch.Tensor:
-    """L2-project quadrature-point values `s_q [n_cells, n_q]` onto the P1
-    space: M x = b by Jacobi-preconditioned CG from the lumped answer (the
-    reference's per-step `project(...)`), or with `lumped=True` the
-    row-sum mass diagonal alone. The tolerance follows the batch's type:
-    1e-12 in float64, 1e-6 in float32. On the ELL layout every scatter is
-    a dense K1 launch with one component."""
+    """L2-project quadrature-point values `s_q [n_cells, n_q]` onto the
+    batch's space: M x = b by Jacobi-preconditioned CG from the lumped
+    answer (the reference's per-step `project(...)`), or with
+    `lumped=True` the row-sum mass diagonal alone. The tolerance follows
+    the batch's type: 1e-12 in float64, 1e-6 in float32. On the ELL layout
+    every scatter is a dense K1 launch with one component."""
     if tol is None:
         tol = 1e-12 if batch.dtype == torch.float64 else 1e-6
     b = batch.scatter(batch.mass(s_q))
@@ -395,3 +466,9 @@ def project(s_q: torch.Tensor, batch: CellBatch, lumped: bool = False,
     x, _, _ = cg(matvec, b, x0=b / lump, precond=lambda r: r / lump,
                  tol=tol, maxiter=maxiter)
     return x
+
+
+def vector_l2_norm(u: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm of the flattened dof vector (dolfin's
+    `norm(v.vector())`)."""
+    return torch.linalg.vector_norm(u.reshape(-1))

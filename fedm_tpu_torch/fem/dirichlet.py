@@ -68,3 +68,11 @@ class BCSet:
     def values_at(self, t: float) -> torch.Tensor:
         """BC values at time `t` as a dense float64 [n_dofs, n_eq] tensor."""
         return self._values(float(t)) if self._timed else self.values
+
+
+def combine_bcs(space: FunctionSpace, n_eq: int, bcs: list, *,
+                device) -> BCSet:
+    """The BCSet of `bcs` on a [n_dofs, n_eq] state (the JAX package's
+    `combine_bcs`); on P2 spaces the dofs come from
+    `FunctionSpace.boundary_dofs`, edge dofs included."""
+    return BCSet(space, n_eq, bcs, device=device)

@@ -85,12 +85,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "argon_synth/ under OUT/file_input; the JAX "
                          "tool's default is the reference's 4_particles "
                          "tables, not in this repository)")
-    ap.add_argument("--degree", type=int, default=1,
-                    help="Lagrange degree (only 1 is ported: P2 comes "
-                         "with the rest of ROADMAP.md slice 11)")
-    ap.add_argument("--devices", type=int, default=1,
-                    help="devices to distribute over (only 1 is ported: "
-                         "ROADMAP.md slice 12)")
     return ap
 
 
@@ -107,14 +101,7 @@ def parse_args(argv=None) -> argparse.Namespace:
             ap.error(f"preset {pname!r} sets unknown keys: {sorted(unknown)}")
     if known.preset is not None:
         ap.set_defaults(**PRESETS[known.preset])
-    args = ap.parse_args(argv)
-    if args.degree != 1:
-        ap.error("not ported yet: --degree 2 (P2 elements) comes with the "
-                 "rest of ROADMAP.md slice 11")
-    if args.devices > 1:
-        ap.error("not ported yet: --devices > 1 (PlasmaModel.distribute) "
-                 "comes with ROADMAP.md slice 12")
-    return args
+    return ap.parse_args(argv)
 
 
 def build_models(args: argparse.Namespace):

@@ -1,5 +1,6 @@
-from .mesh import Mesh
-from .generators import rectangle_mesh
+from .mesh import Mesh, mesh_info
+from .generators import interval_mesh, rectangle_mesh
 from .marking import mark_boundaries
 
-__all__ = ["Mesh", "rectangle_mesh", "mark_boundaries"]
+__all__ = ["Mesh", "mesh_info", "interval_mesh", "rectangle_mesh",
+           "mark_boundaries"]

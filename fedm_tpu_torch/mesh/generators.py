@@ -1,12 +1,20 @@
-"""Structured rectangle mesh generator with the three diagonal patterns of
-the JAX package's `mesh/generators.py` (the same vertex and cell order:
-every ELL table and sum order follows from it)."""
+"""Structured mesh generators of the JAX package's `mesh/generators.py`:
+the uniform interval and the rectangle with its three diagonal patterns
+(the same vertex and cell order: every ELL table and sum order follows
+from it)."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from .mesh import Mesh
+
+
+def interval_mesh(n: int, a: float, b: float) -> Mesh:
+    """Uniform 1D mesh with `n` cells on [a, b]."""
+    coords = np.linspace(a, b, n + 1)[:, None]
+    cells = np.stack([np.arange(n), np.arange(1, n + 1)], axis=1)
+    return Mesh(coords, cells)
 
 
 def rectangle_mesh(p0: tuple, p1: tuple, nx: int, ny: int,

@@ -1,6 +1,6 @@
 """The port's entry point `python -m fedm_tpu_torch.glow_run`: its presets
-are the JAX tool's (`tools/glow_run.py`), options the port does not have are
-refused with the slice that brings them, and a CPU run of the glow50
+are the JAX tool's (`tools/glow_run.py`), its command line is the JAX
+tool's plus --device, and a CPU run of the glow50
 protocol on a crossed 8 x 8 mesh starts from t = 0 on the synthetic argon
 tree it generates, writes a checkpoint with the protocol in its meta and
 the logs, and resumes from it."""
@@ -39,15 +39,18 @@ def test_preset_typo_is_refused(monkeypatch, capsys):
     assert "unknown keys: ['hi_ress']" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv,slice_", [
-    (["--degree", "2"], "slice 11"),
-    (["--devices", "2"], "slice 12"),
-], ids=["p2", "devices"])
-def test_options_not_ported_are_refused(argv, slice_, capsys):
+@pytest.mark.parametrize("argv", [["--degree", "2"], ["--devices", "2"]],
+                         ids=["p2", "devices"])
+def test_options_not_ported_are_refused(argv, capsys):
+    """The JAX tool has neither flag (its PlasmaModel is P1 only), so the
+    port's command line is the JAX tool's plus --device: argparse rejects
+    both as unrecognised arguments."""
+    jax_source = (ROOT / "tools" / "glow_run.py").read_text()
+    assert f'"{argv[0]}"' not in jax_source
     with pytest.raises(SystemExit):
         glow_run.parse_args(["--out", "x", *argv])
     err = capsys.readouterr().err
-    assert "not ported yet" in err and slice_ in err
+    assert f"unrecognized arguments: {' '.join(argv)}" in err
 
 
 def test_preset_sets_the_glow50_protocol():

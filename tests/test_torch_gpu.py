@@ -445,3 +445,62 @@ def test_option_step_on_cuda(cuda, option):
     for k in range(3):
         assert np.abs(ug[:, k] - uc[:, k]).max() <= 1e-8 * np.abs(
             uc[:, k]).max()
+
+
+def _tof_table(which):
+    """The ToF cell ELL tables: 1D P2 on 4,000 cells (8,001 rows x 2
+    slots), 2D P1 on 40 x 40 (1,681 x 6); and the flat row count."""
+    from fedm_tpu_torch.fem import FunctionSpace
+    from fedm_tpu_torch.fem.assembly import build_ell_index
+    from fedm_tpu_torch.mesh import interval_mesh, rectangle_mesh
+
+    space = (FunctionSpace(interval_mesh(4000, 0.0, 1e-3), 2)
+             if which == "1d" else FunctionSpace(
+                 rectangle_mesh((0, 0), (2.5e-4, 5e-4), 40, 40), 1))
+    return build_ell_index(space.cell_dofs, space.n_dofs), \
+        space.cell_dofs.size
+
+
+@pytest.mark.parametrize("which,shape", [("1d", (8001, 2)),
+                                         ("2d", (1681, 6))])
+def test_ell_dense_kernel_at_the_tof_shapes(cuda, which, shape):
+    """Both dense calls a ToF run makes on its cell table, float64, C = 1:
+    `ell_scatter` (project) and `ell_scatter_add_` with rows=None
+    (residual, J v, node blocks), against their plain versions."""
+    idx_np, n_flat = _tof_table(which)
+    assert idx_np.shape == shape
+    rng = np.random.default_rng(shape[0])
+    flat = torch.as_tensor(rng.standard_normal((n_flat, 1)))
+    out0 = torch.as_tensor(rng.standard_normal((shape[0], 1)))
+    idx = torch.as_tensor(idx_np)
+    ref = ell_scatter_ref(flat, idx)
+    got = ell_scatter(flat.to(cuda), idx.to(cuda)).cpu()
+    torch.testing.assert_close(got, ref, rtol=1e-13, atol=1e-13)
+    ref_add = ell_scatter_add_ref(out0.clone(), flat, idx)
+    got_add = ell_scatter_add_(out0.to(cuda), flat.to(cuda), idx.to(cuda))
+    torch.testing.assert_close(got_add.cpu(), ref_add, rtol=1e-13,
+                               atol=1e-13)
+
+
+def test_tof_1d_short_run_on_cuda(cuda):
+    """A short 1D ToF run (100 P2 cells, 5 steps) on the card against the
+    same run on the CPU: the same Newton iterations, states to 1e-11 and
+    the error to 1e-11 relative, with K1's dense forms launched."""
+    from fedm_tpu_torch.models.tof import TimeOfFlight1D, TofConfig
+
+    def run(device):
+        m = TimeOfFlight1D(TofConfig(dt=1e-11, T_final=5e-11), n_cells=100,
+                           device=device)
+        u, errors = m.run()
+        return m, u.cpu().numpy(), errors
+
+    before = (launch_count("ell_scatter"), launch_count("ell_scatter_add_"))
+    mg, ug, eg = run(cuda)
+    assert launch_count("ell_scatter") > before[0]
+    assert launch_count("ell_scatter_add_") > before[1]
+    mc, uc, ec = run("cpu")
+    assert [i.iters for i in mg.step_infos] == [i.iters for i in
+                                                  mc.step_infos]
+    assert np.linalg.norm(ug - uc) <= 1e-11 * np.linalg.norm(uc)
+    assert eg[0][0] == ec[0][0]
+    assert abs(eg[0][1] - ec[0][1]) <= 1e-11 * ec[0][1]

@@ -16,10 +16,13 @@ from fedm_tpu.io.checkpoint import load_checkpoint as jax_load_checkpoint
 from fedm_tpu.ops.exprs import ExpressionError as JaxExpressionError
 from fedm_tpu.ops.exprs import compile_expression as jax_compile
 from fedm_tpu_torch import convert
-from fedm_tpu_torch.fem import BCSet, CellBatch, FacetBatch
+from fedm_tpu_torch.fem import (BCSet, CellBatch, FacetBatch, combine_bcs,
+                                interpolate)
+from fedm_tpu_torch.fem.postprocess import normal_vector
 from fedm_tpu_torch.fem.interpolation import p1_transfer
 from fedm_tpu_torch.io import load_checkpoint
 from fedm_tpu_torch.models.generic import PlasmaModel
+from fedm_tpu_torch.models.tof import TimeOfFlight1D, TimeOfFlight2D
 from fedm_tpu_torch.models.streamer import (ALPHA_EXPR, D_E_EXPR, MU_E_EXPR,
                                             StreamerModel)
 from fedm_tpu_torch.ops.exprs import ExpressionError, compile_expression
@@ -55,14 +58,18 @@ def test_port_source_list_is_complete():
 
 @pytest.mark.parametrize("entry", [StreamerModel.__init__, load_checkpoint,
                                    convert.state_from_arrays,
-                                   PlasmaModel.__init__])
+                                   PlasmaModel.__init__,
+                                   TimeOfFlight1D.__init__,
+                                   TimeOfFlight2D.__init__,
+                                   convert.field_from_array])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
 @pytest.mark.parametrize("cls", [CellBatch, FacetBatch, BCSet,
                                  StructuredPoissonMG, GeometricMultigrid,
-                                 p1_transfer],
+                                 p1_transfer, combine_bcs, interpolate,
+                                 normal_vector],
                          ids=lambda c: c.__name__)
 def test_building_blocks_take_the_device_from_the_caller(cls):
     """No default: the device reaches them only from an entry point."""
@@ -95,6 +102,22 @@ def test_convert_round_trip():
     assert back.keys() == arrays.keys()
     for k, v in arrays.items():
         np.testing.assert_array_equal(np.asarray(back[k]), v)
+
+
+@pytest.mark.parametrize("degree", [1, 2])
+def test_convert_a_tof_state(degree):
+    """A time-of-flight state (u [n_dofs, 1] float64, P2 included) moves
+    from the JAX package to the port and back unchanged."""
+    from fedm_tpu.models.tof import TimeOfFlight1D as JaxTof1D
+
+    u = JaxTof1D(n_cells=50, degree=degree).initial_state()
+    assert u.shape == (50 * degree + 1, 1)
+    got = convert.field_from_array(np.asarray(u), device="cpu")
+    assert got.dtype == torch.float64 and got.shape == u.shape
+    np.testing.assert_array_equal(got.numpy(), np.asarray(u))
+    port = TimeOfFlight1D(n_cells=50, degree=degree, device="cpu")
+    np.testing.assert_allclose(port.initial_state().numpy(), np.asarray(u),
+                               rtol=1e-15, atol=0)
 
 
 @pytest.mark.parametrize("expr", [MU_E_EXPR, D_E_EXPR, ALPHA_EXPR,

@@ -79,11 +79,11 @@ def test_mesh_topology_and_markers(models):
 
 @pytest.mark.parametrize("degree", range(1, 7))
 def test_cell_quadrature_and_tabulation(degree):
-    pts, wts = cell_quadrature(degree)
+    pts, wts = cell_quadrature("triangle", degree)
     jpts, jwts = jax_cell_quadrature("triangle", degree)
     np.testing.assert_array_equal(pts, jpts)
     np.testing.assert_array_equal(wts, jwts)
-    N, dN = tabulate(pts)
+    N, dN = tabulate("triangle", 1, pts)
     jN, jdN = jax_tabulate("triangle", 1, jpts)
     np.testing.assert_array_equal(N, jN)
     np.testing.assert_array_equal(dN, jdN)
@@ -91,7 +91,7 @@ def test_cell_quadrature_and_tabulation(degree):
 
 @pytest.mark.parametrize("degree", range(1, 5))
 def test_facet_quadrature(degree):
-    pts, wts = facet_quadrature(degree)
+    pts, wts = facet_quadrature(2, degree)
     jpts, jwts = jax_facet_quadrature(2, degree)
     np.testing.assert_array_equal(pts, jpts)
     np.testing.assert_array_equal(wts, jwts)

@@ -18,7 +18,11 @@ One of three paths is set up, `--warmup` advances are run, and
   host seconds (`chip_smoke.py`'s phase rescue);
 - `options`: the JAX package's default StreamerConfig (graded 80 x 160,
   float64) with `--option` mg (the default), zline, tzline or
-  row_scaled_f32, from t = 0 (`chip_smoke.py`'s phase options).
+  row_scaled_f32, from t = 0 (`chip_smoke.py`'s phase options);
+- `tof_1d`, `tof_2d`: the time-of-flight runs of `chip_smoke.py`'s phase
+  tof (TimeOfFlight1D on 4,000 P2 cells, dt 1e-11; TimeOfFlight2D's
+  reference configuration, dt 1e-12), an "advance" being one fixed-dt
+  step, the first of them the BDF1 one.
 
 Prints the card's name and power limit, then per profiled advance its
 wall time, the device-busy time (the union of kernel intervals), the idle
@@ -26,7 +30,8 @@ share, the kernel count, K1's launches by wrapper, table and width and
 its device time, then the kernels and operators that take the most
 device time.
 
-    python tools/torch_profile.py --path {restart,window,glow,rescue,options}
+    python tools/torch_profile.py --path {restart,window,glow,rescue,options,
+        tof_1d,tof_2d}
         [--option mg] [--warmup N] [--advances 1] [--top 25]
 """
 
@@ -48,7 +53,8 @@ from fedm_tpu_torch.ops import ell_scatter as k1  # noqa: E402
 
 # the window's third advance is a long Krylov solve (hundreds of BiCGStab
 # and GMRES iterations): under the profiler it takes more than 6 minutes
-WARMUP = {"restart": 1, "window": 0, "glow": 3, "rescue": 0, "options": 0}
+WARMUP = {"restart": 1, "window": 0, "glow": 3, "rescue": 0, "options": 0,
+          "tof_1d": 1, "tof_2d": 1}
 # the options path's configurations (StreamerConfig overrides)
 OPTIONS = {"mg": {}, "zline": {"poisson_precond": "zline"},
            "tzline": {"poisson_precond": "mg-zline", "transport_zline": True},
@@ -175,8 +181,47 @@ def glow(tmp, option=None):
             lambda s: driver.advance(s, model._update_aux(s.u)))
 
 
+def _tof(model):
+    """(state, advance) of a ToF model: one fixed-dt step per advance,
+    BDF1 first (dt_old = 1e30), as `_TofBase.run` steps."""
+    import types
+
+    from fedm_tpu_torch.model.system import StepParams
+
+    c = model.cfg
+    u0 = model.initial_state()
+    print(f"{model.space.n_dofs} dofs")
+    state = types.SimpleNamespace(u=u0, u_old=u0, t=c.t0, dt_old=1e30,
+                                  n_accepted=0, n_rejected=0)
+
+    def advance(s):
+        t = s.t + c.dt
+        u, info = model.system.step(s.u, s.u, s.u_old, {},
+                                    StepParams(t, c.dt, s.dt_old))
+        print(f"step to t = {t:.4e}: {info.iters} Newton iterations")
+        return types.SimpleNamespace(u=u, u_old=s.u, t=t, dt_old=c.dt,
+                                     n_accepted=s.n_accepted + 1,
+                                     n_rejected=s.n_rejected)
+
+    return state, advance
+
+
+def tof_1d(tmp, option=None):
+    from fedm_tpu_torch.models.tof import TimeOfFlight1D, TofConfig
+
+    return _tof(TimeOfFlight1D(TofConfig(dt=1e-11, T_final=1e-10),
+                               n_cells=4000))
+
+
+def tof_2d(tmp, option=None):
+    from fedm_tpu_torch.models.tof import TimeOfFlight2D
+
+    return _tof(TimeOfFlight2D())
+
+
 PATHS = {"restart": restart, "window": window, "glow": glow,
-         "rescue": rescue, "options": options}
+         "rescue": rescue, "options": options, "tof_1d": tof_1d,
+         "tof_2d": tof_2d}
 
 
 def main():
