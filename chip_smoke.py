@@ -2,8 +2,10 @@
 kernels, holds each against its plain PyTorch version, and drives the port's
 paths at full size: the Bagheri streamer restart that `bench.py` times, the
 streamer from t = 0 on its moving window with the direct rescue, the argon
-glow, the streamer's option paths, and the time-of-flight verification
-runs (1D P2 and 2D axisymmetric) with their entry point.
+glow, the streamer's option paths, the time-of-flight verification runs
+(1D P2 and 2D axisymmetric) with their entry point, and the extended
+reaction scheme under the DOF-partitioned domain decomposition with its
+entry point.
 
     python3 chip_smoke.py
 
@@ -31,7 +33,8 @@ Phases (each reports its elapsed seconds on stderr):
      state and its residual held to them too, K1 inside the moved
      residual against its plain version (exactly), then 10 adaptive
      advances with K1's launch counter reset just before and read just
-     after;
+     after; the third runs BiCGStab to its cap and then the GMRES
+     fallback, which must run;
   5. the glow: the argon glow discharge at the `glow50` protocol of
      `python -m fedm_tpu_torch.glow_run` (crossed 64 x 64 mesh, 8,321
      dofs, 41,605 unknowns, the synthetic argon tree generated into a
@@ -76,14 +79,37 @@ Phases (each reports its elapsed seconds on stderr):
      K1's launches
      counted around each run (its dense forms are the ToF cell scatter);
      then `python -m fedm_tpu_torch.examples.tof_1d --quick` as a user
-     runs it, its output tree and `relative error.log` checked.
+     runs it, its output tree and `relative error.log` checked;
+  8. extended (run before 7, whose 2D run takes the length the budget
+     left allows): the extended reaction scheme of `python -m
+     fedm_tpu_torch.examples.extended_scheme` at its defaults (18 species,
+     19 equations, crossed 32 x 64, 79,667 unknowns, float64), held to
+     tools/port_reference_extended.py's JAX numbers: the native
+     partitioner's 8 parts and the DD layout (n_own_max, n_ghost_max,
+     shifts, a checksum of the parts); the model's size; the float64
+     residual and node blocks, 8 parts on the card and undistributed, to
+     each other and to the JAX norms, each tolerance shown to refuse the
+     residual without the reverse halo exchange and in float32, phantom
+     rows identity rows, `_dist_stiffness_op` against
+     `masked_stiffness_op`; one step from the initial state, both ways,
+     with the JAX package's Newton and BiCGStab counts, the states within
+     1e-6 relative, K1's launches by shape counted around the distributed
+     step; the entry point with `--devices 8 --steps 1` as a process;
+     the streamer's DD at the default StreamerConfig (39,123 unknowns, 8
+     parts): residual and node blocks against the undistributed system,
+     one step with `enable_distributed_elliptic` against the
+     undistributed step; 20 BiCGStab iterations of the distributed
+     step's Krylov loop under the profiler (its idle share).
 Phase 2 also holds and times K1 at the time-of-flight tables (float64,
 C = 1: the 1D P2 mesh's 8,001 rows x 2 slots, the 2D P1 mesh's 1,681 x 6),
 both dense forms, with the empty-kernel floor on their grids, and at the
 glow's shapes: the dense cell table
 of the crossed 64 x 64 mesh (8,321 rows x 8 slots) at C = 1 (`project`),
 5 (residual and Jacobian action, float32 and the float64 defect) and 25
-(node blocks).
+(node blocks), and at the extended scheme's tables, float64: the stacked
+DD cell table (8 parts, 4,696 rows) in place at C = 19 and 361, the
+stacked DD facet table at C = 19, and `ell_scatter` at C = 1 on the
+undistributed cell table.
 The script stops with a non-zero exit if any check fails or the whole run
 passes its time budget. Its last stdout line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -150,6 +176,10 @@ REF_WINDOW = {
 WINDOW_STATE_RTOL = (1e-12, 1e-12, 5e-10)
 WINDOW_INITIAL_RESIDUAL_RTOL = (5e-11, 2e-8, 2e-3)
 WINDOW_MOVED_RESIDUAL_RTOL = (5e-11, 2e-8, 5e-5)
+# the third advance from the moved state is the slow one (BiCGStab to its
+# cap, then GMRES: 44-89 s on the H100), the problem's sensitivity
+# (PERF.md, sec. 6), and the only place where the card runs the GMRES
+# fallback
 N_WINDOW_ADVANCES = 10
 # The glow's reference numbers, computed with the JAX package on the CPU by:
 #   JAX_PLATFORMS=cpu python tools/port_reference_glow.py
@@ -336,6 +366,95 @@ TOF_2D_FULL_RESERVE_S = 200
 TOF_STATE_RTOL = 1e-13
 TOF_RESIDUAL_RTOL = 1e-12
 TOF_ERROR_RTOL = 2e-12
+# The extended scheme's reference numbers (phase 8), computed with the JAX
+# package on the CPU with 8 virtual devices by:  JAX_PLATFORMS=cpu python
+# tools/port_reference_extended.py  (examples/extended_scheme.py's
+# defaults: 18 species, crossed 32 x 64, float64, mg_levels 0, quadrature
+# 2; the partition of the dual graph into 8 parts and the JAX
+# DistributedSystem's layout; the first attempted step's float64 residual
+# and node-block row norms at the initial state; the single-device step's
+# Newton and BiCGStab counts and state; the example's lines with
+# --devices 8 --steps 1)
+EXT_PARTS, EXT_SPECIES = 8, 18
+REF_EXTENDED = {
+    "partition": {
+        "part_checksum": 128464896,
+        "part_sizes": [1024, 1024, 1024, 1024, 1024, 1024, 1024, 1024],
+        "n_own_max": 553,
+        "n_ghost_max": 33,
+        "shifts": [1]},
+    "model": {
+        "n_species": 18,
+        "n_eq": 19,
+        "n_dofs": 4193,
+        "unknowns": 79667,
+        "n_reactions": 60,
+        "species": ["Ar[1p0]", "Ar[L01]", "Ar[L02]", "Ar[L03]", "Ar[L04]",
+            "Ar[L05]", "Ar[L06]", "Ar[L07]", "Ar[L08]", "Ar[L09]", "Ar[L10]",
+            "Ar[L11]", "Ar[L12]", "Ar[L13]", "Ar2[*]", "Ar[+]", "Ar2[+]",
+            "e"]},
+    "initial": {
+        "params": [1e-13, 1e-13, 1e+30],
+        "state_norms": [1860.340819988003, 1789.201962865558,
+            1789.201962865558, 1789.201962865558, 1789.201962865558,
+            1789.201962865558, 1789.201962865558, 1789.201962865558,
+            1789.201962865558, 1789.201962865558, 1789.201962865558,
+            1789.201962865558, 1789.201962865558, 1789.201962865558,
+            1789.201962865558, 1789.201962865558, 1789.201962865558,
+            1789.201962865558, 10.653797434089558],
+        "residual_norms": [119385819739492.97, 938801807176.4933,
+            621358512465.0486, 439981402196.76764, 324553862095.74457,
+            245894754848.22748, 189707935979.41132, 148178058585.02847,
+            116681390744.17078, 92315111107.04196, 73171533048.579,
+            57951532505.48925, 45746689429.64587, 35911136682.814186,
+            20256604960.729492, 254314217090.38654, 12625988975.642107,
+            25723513169392.64, 0.14360688569949528],
+        "block_row_norms": [9.314499096063396e+17, 2.950179721637785e+17,
+            2.950179646895026e+17, 2.9501795846671776e+17,
+            2.9501795320228166e+17, 2.950179486903713e+17,
+            2.9501794478026406e+17, 2.9501794135904154e+17,
+            2.9501793834035603e+17, 2.950179356571298e+17,
+            2.950179332563813e+17, 2.9501793109572326e+17,
+            2.950179291408476e+17, 2.950179273636918e+17,
+            2.950179309469459e+17, 2.950179308652523e+17, 2.9501793802949e+17,
+            2.9616102377643354e+17, 14.075854045463007]},
+    "step": {
+        "newton_iterations": 2,
+        "bicgstab_iterations": 232,
+        "gmres_iterations": 0,
+        "state_norms": [1860.3382598746887, 1789.2020657365094,
+            1789.202030899981, 1789.2020109937207, 1789.2019983235373,
+            1789.2019896871427, 1789.2019835155786, 1789.2019789509723,
+            1789.201975485571, 1789.2019728003445, 1789.2019706852495,
+            1789.2019689967292, 1789.2019676336217, 1789.201966522789,
+            1789.201960671968, 1789.2019904430365, 1789.2019625510652,
+            1789.2014150615678, 9.934789987506576]},
+    # BiCGStab's count moves with rounding: the JAX package's own counts
+    # over the unperturbed step and 20 from the state scaled by
+    # (1 + 1e-12 * seeded noise) span 213-264 (Newton 2 in every one)
+    "spread": {"bicgstab_iterations": [213, 264]},
+    "example": {
+        "lines": ["18 species, 19 equations/node, 4193 dofs = 79667 "
+                  "unknowns, 60 reactions",
+                  "distributed over 8 devices: 553 own + 33 ghost rows/dev"],
+        "accepted": 2, "rejected": 0, "t": 6.808e-13,
+        "ne_max": 1.003e12, "eps_mean": 3.0}}
+# Tolerances of phase 8. Against the JAX norms, per row: the state 1e-13
+# (the same closed form; CPU gap 9.2e-15 on the potential, 0 elsewhere),
+# the float64 residual 1e-12 and the node blocks' rows 1e-12 (CPU gaps at
+# most 5.9e-15 and 2.2e-16, tools/port_reference_extended.py --port); the
+# residual in float32 misses by 2.0e-8 to 3.3e-6 and without the reverse
+# halo exchange by 1.4e-3 to 3.4e-2, and the phase checks that both fail.
+# Distributed against undistributed (residual, node blocks,
+# `_dist_stiffness_op`): rtol 1e-10, atol 1e-12 of the largest entry (the
+# JAX DD test's; CPU 2.1e-17 of the largest). The step's states: rtol
+# 1e-6, atol 1e-10 (the JAX DD test's: Newton stops at rtol 1e-4).
+EXT_STATE_RTOL = 1e-12
+EXT_RESIDUAL_RTOL = [1e-12] * 19
+EXT_BLOCKS_RTOL = 1e-12
+EXT_OPS_RTOL, EXT_OPS_ATOL_REL = 1e-10, 1e-12
+EXT_STEP_RTOL, EXT_STEP_ATOL = 1e-6, 1e-10
+EXT_PROFILED_ITERS = 20
 T0 = time.perf_counter()
 _phase = "start"
 
@@ -470,7 +589,7 @@ def k1_compact_case(name, rows, idx, dense_idx, dofs, flat, n_dofs, k1,
            "plain_": lambda o: k1.ell_scatter_add_ref(o, flat, idx, rows),
            "library_": lambda o: o.index_add_(0, dofs, flat),
            "replaced_path_": lambda o: o + k1.ell_scatter(flat, dense_idx),
-           "floor_": lambda o: k1.ell_noop(n_rows, C)}
+           "floor_": lambda o: k1.ell_noop(n_rows, max_val, C)}
     calls = [(out0,)] * 20
     timings = {}
     for key, fn in fns.items():
@@ -676,6 +795,8 @@ def fresh_window(k1, card) -> dict:
               for x in (state.u, state.u_old, state.u_old1)),
           "non-finite window state")
     check(accepted >= 1, "no window advance was accepted")
+    check(sum(a.get("gmres", 0) for a in per_advance) > 0,
+          "the window advances never reached the GMRES fallback")
     check(launches["ell_scatter_add_"] > 0,
           "the window path never launched K1's compact form")
     check(launches["ell_scatter"] == 0,
@@ -1371,6 +1492,406 @@ def tof(k1, card) -> dict:
     return out
 
 
+def extended_models(tmp: Path, n_parts: int = EXT_PARTS):
+    """The extended scheme of `python -m
+    fedm_tpu_torch.examples.extended_scheme` at its defaults (18 species,
+    crossed 32 x 64, float64) on a tree generated into `tmp`: the
+    undistributed model, and a second one distributed over `n_parts`
+    parts on the card, with its DistributedSystem."""
+    from fedm_tpu_torch.examples import extended_scheme
+    from fedm_tpu_torch.models.argon_synth import generate_argon_n_input
+
+    root = generate_argon_n_input(tmp, n_excited=EXT_SPECIES - 5)
+    args = extended_scheme.parse_args([])
+    m = extended_scheme.build_model(args, tmp, root.name)
+    md = extended_scheme.build_model(args, tmp, root.name)
+    return m, md, md.distribute(["cuda"] * n_parts)
+
+
+def extended_k1_cases(k1, flush) -> list:
+    """K1 at the extended scheme's shapes, float64: the stacked DD cell
+    table (8 parts, their trash rows included) in place at C = 19
+    (residual and J v) and C = 361 (node blocks), the stacked DD facet
+    table in place at C = 19, and `ell_scatter` at C = 1 on the
+    undistributed cell table (the aux update's `project`); each against
+    its plain version, timed cold beside `index_add_`, the empty-kernel
+    floor and the byte bound."""
+    import tempfile
+
+    from fedm_tpu_torch.fem.assembly import build_ell_index
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    with tempfile.TemporaryDirectory() as tmp:
+        m, _, d = extended_models(Path(tmp))
+    cb, fb = d._batches[0][0], d._batches[1][0]
+    rows = d.n_parts * d.n_ext
+    cases = []
+    idx = torch.as_tensor(build_ell_index(m.batch.dofs_np, m.batch.n_dofs),
+                          device="cuda")
+    flat = torch.randn((m.batch.dofs.numel(), 1), generator=gen,
+                       device="cuda", dtype=torch.float64)
+    cases.append(k1_case("extended cell C=1 float64", idx, flat,
+                         k1.ell_scatter, k1.ell_scatter_ref, flush))
+    for name, b, C in (("extended dd cell", cb, 19),
+                       ("extended dd cell", cb, 361),
+                       ("extended dd facet", fb, 19)):
+        flat = torch.randn((b.dofs.numel(), C), generator=gen,
+                           device="cuda", dtype=torch.float64)
+        cases.append(k1_compact_case(
+            f"{name} dense in place C={C} float64", None, b.gather_idx,
+            b.gather_idx, b.dofs.reshape(-1).long(), flat, rows, k1, gen,
+            flush))
+    return cases
+
+
+def _close(name, got, ref, rtol, atol=0.0, atol_rel=0.0) -> float:
+    """The largest |got - ref| / (atol + atol_rel * max|ref| + rtol |ref|):
+    at most 1 where `got` holds to `ref`."""
+    ref = ref.double()
+    err = (got.double() - ref).abs()
+    lim = atol + atol_rel * float(ref.abs().max()) + rtol * ref.abs()
+    ratio = float((err / lim).max())
+    log(f"{name}: max |a - b| / (atol + rtol |b|) = {ratio:.3e} (rtol "
+        f"{rtol:g}, atol {atol:g} + {atol_rel:g} * max)")
+    return ratio
+
+
+def extended(k1, card) -> dict:
+    """Phase 8: the extended reaction scheme under the DOF-partitioned
+    domain decomposition, held to tools/port_reference_extended.py's JAX
+    numbers."""
+    import tempfile
+
+    import numpy as np
+
+    from fedm_tpu_torch.mesh.reorder import cell_adjacency_csr
+    from fedm_tpu_torch.model.system import StepParams
+    from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel
+    from fedm_tpu_torch.native import native_available, partition_graph
+    from fedm_tpu_torch.solvers import newton
+
+    ref = REF_EXTENDED
+    out = {"card": card}
+
+    def norms(x):
+        x = x.reshape(x.shape[0], -1).double()
+        return [float(torch.linalg.vector_norm(x[:, k]))
+                for k in range(x.shape[1])]
+
+    def row_norms(B):
+        return [float(torch.linalg.vector_norm(B[:, i, :].double()))
+                for i in range(B.shape[1])]
+
+    # (1) the partitioner
+    check(native_available(), "the native partitioner did not build")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        m, md, d = extended_models(Path(tmp))
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    part = partition_graph(*cell_adjacency_csr(m.mesh), EXT_PARTS)
+    out["partition_s"] = time.perf_counter() - t
+    rp = ref["partition"]
+    got = {"part_checksum": int(np.sum((np.arange(len(part)) + 1)
+                                       * part.astype(np.int64))),
+           "part_sizes": np.bincount(part, minlength=EXT_PARTS).tolist(),
+           "n_own_max": d.n_own_max, "n_ghost_max": d.n_ghost_max,
+           "shifts": list(d._shifts)}
+    out["partition"] = got
+    log(f"extended: native partition of {m.mesh.n_cells} cells into "
+        f"{EXT_PARTS} parts in {out['partition_s'] * 1e3:.1f} ms: {got} "
+        f"(JAX {rp})")
+    check(np.array_equal(part, d.cell_part), "the DD's partition differs")
+    for key, val in got.items():
+        check(val == rp[key], f"extended partition: {key} {val} differs "
+                              f"from the JAX package's {rp[key]}")
+
+    # (2) the model's size
+    rm = ref["model"]
+    size = {"n_species": m.n_species, "n_eq": m.n_eq,
+            "n_dofs": m.space.n_dofs,
+            "unknowns": m.space.n_dofs * m.n_eq,
+            "n_reactions": int(m.P_mat.shape[0]), "species": list(m.species)}
+    out["model"] = {k: v for k, v in size.items() if k != "species"}
+    log(f"extended model: {out['model']}, built (twice, one distributed) "
+        f"in {out['build_s']:.2f} s")
+    for key, val in size.items():
+        check(val == rm[key], f"extended model: {key} {val} differs from "
+                              f"the JAX package's {rm[key]}")
+
+    # (3) residual and node blocks, distributed and not
+    ri = ref["initial"]
+    s, sd = m.initial_state(), md.initial_state()
+    out["state_rel"] = held_to("extended initial state norms", norms(s.u),
+                               ri["state_norms"], [EXT_STATE_RTOL] * m.n_eq)
+    check(np.array_equal(d.from_dist(sd.u), s.u.cpu().numpy()),
+          "the distributed initial state differs from the undistributed")
+    aux, auxd = m._update_aux(s.u), md._update_aux(sd.u)
+    p = StepParams(*ri["params"])
+    F = m.system.residual(s.u, s.u, s.u_old1, p, aux=aux)
+    Fd = md.system.residual(sd.u, sd.u, sd.u_old1, p, aux=auxd)
+    Fg = Fd[d._slot_of_t]
+    z = torch.zeros_like(s.u)
+    B = m.system.operators(s.u, s.u_old1, p, aux=aux).jacobian_blocks(z)
+    Bd = md.system.operators(sd.u, sd.u_old1, p, aux=auxd).jacobian_blocks(
+        torch.zeros_like(sd.u))
+    Bg = Bd[d._slot_of_t]
+    out["residual_rel"] = held_to(
+        "extended f64 residual norms", norms(F), ri["residual_norms"],
+        EXT_RESIDUAL_RTOL)
+    out["dist_residual_rel"] = held_to(
+        "extended distributed f64 residual norms", norms(Fg),
+        ri["residual_norms"], EXT_RESIDUAL_RTOL)
+    out["blocks_rel"] = held_to(
+        "extended node-block row norms", row_norms(B),
+        ri["block_row_norms"], [EXT_BLOCKS_RTOL] * m.n_eq)
+    out["dist_blocks_rel"] = held_to(
+        "extended distributed node-block row norms", row_norms(Bg),
+        ri["block_row_norms"], [EXT_BLOCKS_RTOL] * m.n_eq)
+    out["dist_vs_undist_residual"] = _close(
+        "extended residual, 8 parts vs undistributed", Fg, F,
+        EXT_OPS_RTOL, atol_rel=EXT_OPS_ATOL_REL)
+    out["dist_vs_undist_blocks"] = _close(
+        "extended node blocks, 8 parts vs undistributed", Bg, B,
+        EXT_OPS_RTOL, atol_rel=EXT_OPS_ATOL_REL)
+    check(out["dist_vs_undist_residual"] <= 1.0
+          and out["dist_vs_undist_blocks"] <= 1.0,
+          "the distributed residual or blocks differ from the undistributed")
+    phantom = torch.as_tensor(np.setdiff1d(np.arange(d.n_dofs_dist),
+                                           d._slot_of), device="cuda")
+    eye = torch.eye(m.n_eq, dtype=Bd.dtype, device="cuda")
+    check(not bool(Fd[phantom].any())
+          and bool((Bd[phantom] == eye).all()),
+          "phantom rows are not identity rows")
+    # controls: the reverse exchange skipped, and the residual in float32
+    with mock.patch.object(d, "_halo_reduce", lambda r: r.reshape(
+            (d.n_parts, d.n_ext) + tuple(r.shape[1:]))[:, :d.n_own_max]
+            .reshape((d.n_dofs_dist,) + tuple(r.shape[1:]))):
+        Fc = md.system.residual(sd.u, sd.u, sd.u_old1, p, aux=auxd)
+    out["control_no_reverse_exchange"] = _close(
+        "extended residual without the reverse exchange (control)",
+        Fc[d._slot_of_t], F, EXT_OPS_RTOL, atol_rel=EXT_OPS_ATOL_REL)
+    check(out["control_no_reverse_exchange"] > 1.0,
+          "the residual without the reverse exchange passes the tolerance")
+    out["control_no_reverse_exchange_rel"] = refused_by(
+        "extended residual norms without the reverse exchange",
+        norms(Fc[d._slot_of_t]), ri["residual_norms"], EXT_RESIDUAL_RTOL)
+    out["control_f32_rel"] = refused_by(
+        "extended f32 residual norms", norms(m.system.residual(
+            s.u, s.u, s.u_old1, p, torch.float32, aux=aux)),
+        ri["residual_norms"], EXT_RESIDUAL_RTOL)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(m.space.n_dofs, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    eq = m.n_eq - 1
+    y = m.system.masked_stiffness_op(eq)(x)
+    yd = d._dist_stiffness_op(eq)(d.to_dist(x))[d._slot_of_t]
+    out["stiffness_op"] = _close("extended _dist_stiffness_op vs "
+                                 "masked_stiffness_op", yd, y, EXT_OPS_RTOL,
+                                 atol_rel=EXT_OPS_ATOL_REL)
+    with mock.patch.object(d, "_halo_reduce", lambda r: r.reshape(
+            (d.n_parts, d.n_ext) + tuple(r.shape[1:]))[:, :d.n_own_max]
+            .reshape((d.n_dofs_dist,) + tuple(r.shape[1:]))):
+        yc = d._dist_stiffness_op(eq)(d.to_dist(x))[d._slot_of_t]
+    out["stiffness_op_control"] = _close(
+        "extended _dist_stiffness_op without the reverse exchange "
+        "(control)", yc, y, EXT_OPS_RTOL, atol_rel=EXT_OPS_ATOL_REL)
+    check(out["stiffness_op"] <= 1.0 < out["stiffness_op_control"],
+          "the distributed stiffness operator is off, or its control "
+          "passes")
+    with mock.patch("fedm_tpu_torch.fem.assembly.ell_scatter_add_",
+                    k1.ell_scatter_add_ref):
+        F_plain = md.system.residual(sd.u, sd.u, sd.u_old1, p, aux=auxd)
+    out["dist_residual_k1_vs_plain"] = _close(
+        "extended distributed residual, K1 vs its plain version", Fd,
+        F_plain, 1e-13, atol_rel=1e-15)
+    check(out["dist_residual_k1_vs_plain"] <= 1.0,
+          "K1 in the distributed residual disagrees with the plain scatter")
+    del B, Bd, Bg, Fc
+
+    # (4) one step from the initial state, undistributed and on 8 parts
+    rs = ref["step"]
+    counts = {}
+    patches = {name: counting(counts, name, getattr(newton, name))
+               for name in ("newton_iteration", "bicgstab", "gmres")}
+    steps = {}
+    with mock.patch.multiple(newton, **patches):
+        for key, model, st in (("undistributed", m, s),
+                               ("distributed", md, sd)):
+            counts.clear()
+            k1.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            a = model._update_aux(st.u)
+            u1, info = model.system.step(st.u, st.u, st.u_old1, a, p)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            shapes = collections.Counter()
+            for (_, table, C, dt), n in k1.LAUNCHES.items():
+                shapes[f"{table} C={C} {dt}"] += n
+            steps[key] = (u1, info)
+            out[f"{key}_step"] = {
+                "s": wall, "converged": bool(info.converged),
+                "newton_iterations": counts.get("newton_iteration", 0),
+                "bicgstab_iterations": counts.get("bicgstab", 0),
+                "gmres_iterations": counts.get("gmres", 0),
+                "launches": k1_launches(k1),
+                "launches_by_shape": dict(sorted(shapes.items()))}
+            log(f"extended {key} step: {out[f'{key}_step']} (JAX: Newton "
+                f"{rs['newton_iterations']}, BiCGStab "
+                f"{rs['bicgstab_iterations']}, under 1e-12 perturbations "
+                f"{ref['spread']['bicgstab_iterations']})")
+            check(info.converged, f"the extended {key} step did not "
+                                  f"converge")
+            lo, hi = ref["spread"]["bicgstab_iterations"]
+            rec = out[f"{key}_step"]
+            check(rec["newton_iterations"] == rs["newton_iterations"]
+                  and lo <= rec["bicgstab_iterations"] <= hi
+                  and rec["gmres_iterations"] == rs["gmres_iterations"],
+                  f"the extended {key} step's counts {rec} lie outside "
+                  f"the JAX package's (Newton {rs['newton_iterations']}, "
+                  f"BiCGStab {lo}-{hi}, GMRES {rs['gmres_iterations']})")
+    out["launches"] = out["distributed_step"]["launches"]
+    by_shape = out["distributed_step"]["launches_by_shape"]
+    check(by_shape.get("dense C=19 f64", 0) > 0
+          and by_shape.get("dense C=361 f64", 0) > 0
+          and by_shape.get("dense C=1 f64", 0) > 0,
+          f"the distributed step did not launch K1 at its DD shapes: "
+          f"{by_shape}")
+    u1, u2 = steps["undistributed"][0], steps["distributed"][0][
+        d._slot_of_t]
+    out["step_dist_vs_undist"] = _close(
+        "extended step, 8 parts vs undistributed", u2, u1, EXT_STEP_RTOL,
+        atol=EXT_STEP_ATOL)
+    check(out["step_dist_vs_undist"] <= 1.0, "the distributed step's state "
+          "differs from the undistributed")
+    out["step_state_rel"] = held_to(
+        "extended step state norms", norms(u2), rs["state_norms"],
+        [EXT_STEP_RTOL] * m.n_eq)
+    # where the distributed step's time goes: its Krylov loop (most of its
+    # wall time) under the profiler for EXT_PROFILED_ITERS BiCGStab
+    # iterations of its first Newton iteration, the device events' summed
+    # durations against the wall time (one short trace; a whole step's
+    # trace took ~45 s to read back)
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedm_tpu_torch.solvers.linear import bicgstab
+
+    ops = md.system.operators(sd.u, sd.u_old1, p, aux=md._update_aux(sd.u))
+    z = torch.zeros_like(sd.u)
+    J, M = ops.jacobian_action(z), md.system.block_precond_builder(ops)(z)
+    rhs = M(-ops.residual(z))
+
+    def op(v):
+        return M(J(v))
+
+    bicgstab(op, rhs, tol=1e-30, maxiter=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        _, _, iters = bicgstab(op, rhs, tol=1e-30, maxiter=EXT_PROFILED_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.end - e.time_range.start for e in dev) / 1e6
+    out["profiled_krylov"] = {
+        "iterations": int(iters), "wall_s": wall, "device_events": len(dev),
+        "busy_s": busy if dev else "not measured",
+        "idle_share": 1.0 - busy / wall if dev else "not measured"}
+    log(f"extended distributed Krylov loop profiled: "
+        f"{out['profiled_krylov']}")
+    del ops, J, M, rhs
+    del m, md, d, s, sd, steps, u1, u2, aux, auxd
+
+    # (5) the entry point as a process: one advance and one more
+    re_ = ref["example"]
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fedm_tpu_torch.examples.extended_scheme",
+         "--devices", str(EXT_PARTS), "--steps", "1"], capture_output=True,
+        text=True, cwd=ROOT,
+        timeout=max(60, BUDGET_S - (time.perf_counter() - T0)))
+    out["entry_point_s"] = time.perf_counter() - t
+    check(proc.returncode == 0, f"extended_scheme failed: {proc.stderr}")
+    lines = proc.stdout.strip().splitlines()
+    log(f"extended_scheme --devices {EXT_PARTS} --steps 1 in "
+        f"{out['entry_point_s']:.1f} s: {lines}")
+    mt = re.fullmatch(
+        r"(\d+) accepted steps to t=(\S+) \((\d+) rejected\), \S+ s/step, "
+        r"ne_max=(\S+) m\^-3, eps_mean=(\S+) eV, finite: (\w+)", lines[-1])
+    check(mt is not None and len(lines) == 5,
+          f"extended_scheme printed {lines}")
+    check(lines[1:3] == re_["lines"], f"extended_scheme's model lines "
+          f"{lines[1:3]} differ from the JAX example's {re_['lines']}")
+    got = {"accepted": int(mt[1]), "t": float(mt[2]),
+           "rejected": int(mt[3]), "ne_max": float(mt[4]),
+           "eps_mean": float(mt[5]), "finite": mt[6] == "True"}
+    out["entry_point"] = got
+    check((got["accepted"], got["rejected"], got["finite"])
+          == (re_["accepted"], re_["rejected"], True)
+          and lines[-2].startswith("first step (incl. compile): "),
+          f"extended_scheme's result {got} differs from the JAX example's "
+          f"{re_}")
+    # the printed numbers: within one unit of their last printed digit
+    for key, unit in (("t", 1e-3 * re_["t"]), ("ne_max", 1e-3 * re_["ne_max"]),
+                      ("eps_mean", 0.01)):
+        check(abs(got[key] - re_[key]) <= unit, f"extended_scheme's {key} "
+              f"{got[key]} differs from the JAX example's {re_[key]}")
+
+    # (6) the streamer's DD at the default StreamerConfig (the options
+    # phase's 80 x 160 graded mesh, 13,041 dofs)
+    sm = StreamerModel(StreamerConfig(), device="cuda")
+    smd = StreamerModel(StreamerConfig(), device="cuda")
+    sdd = smd.distribute(["cuda"] * EXT_PARTS)
+    s, sd = sm.initial_state(), smd.initial_state()
+    ps = StepParams(s.t + s.dt, s.dt, s.dt_old)
+    F = sm.system.residual(s.u, s.u, s.u_old1, ps)
+    Fg = sdd.residual(sd.u, sd.u, sd.u_old1, ps)[sdd._slot_of_t]
+    B = sm.system.operators(s.u, s.u_old1, ps).jacobian_blocks(
+        torch.zeros_like(s.u))
+    Bg = sdd.operators(sd.u, sd.u_old1, ps).jacobian_blocks(
+        torch.zeros_like(sd.u))[sdd._slot_of_t]
+    out["streamer"] = {
+        "n_dofs": sm.space.n_dofs, "n_own_max": sdd.n_own_max,
+        "n_ghost_max": sdd.n_ghost_max, "shifts": list(sdd._shifts),
+        "residual": _close("streamer residual, 8 parts vs undistributed",
+                           Fg, F, EXT_OPS_RTOL, atol_rel=EXT_OPS_ATOL_REL),
+        "blocks": _close("streamer node blocks, 8 parts vs undistributed",
+                         Bg, B, EXT_OPS_RTOL, atol_rel=EXT_OPS_ATOL_REL)}
+    check(sm.space.n_dofs * 3 == 39123, "the default streamer changed size")
+    check(out["streamer"]["residual"] <= 1.0
+          and out["streamer"]["blocks"] <= 1.0,
+          "the streamer's distributed residual or blocks differ")
+    rst = {}
+    with mock.patch.multiple(newton, **patches):
+        for key, sys_, st in (("undistributed", sm.system, s),
+                              ("distributed elliptic", sdd, sd)):
+            counts.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if key != "undistributed":
+                sdd.enable_distributed_elliptic(2)
+            u1, info = sys_.step(st.u, st.u, st.u_old1, {}, ps)
+            torch.cuda.synchronize()
+            rst[key] = u1
+            out["streamer"][f"{key}_step"] = {
+                "s": time.perf_counter() - t,
+                "converged": bool(info.converged), **dict(counts)}
+            check(info.converged, f"the streamer's {key} step did not "
+                                  f"converge")
+    log(f"streamer DD: {out['streamer']}")
+    out["streamer"]["step"] = _close(
+        "streamer step, distributed elliptic vs undistributed",
+        rst["distributed elliptic"][sdd._slot_of_t], rst["undistributed"],
+        EXT_STEP_RTOL, atol=EXT_STEP_ATOL)
+    check(out["streamer"]["step"] <= 1.0, "the streamer's distributed "
+          "elliptic step differs from the undistributed")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1475,6 +1996,9 @@ def main() -> int:
     # K1 at the time-of-flight tables (phase 7's paths), timed here while
     # the profiler's traces are whole
     tof_cases = tof_k1_cases(k1, flush)
+    # K1 at the extended scheme's shapes (phase 8's paths): the stacked
+    # domain-decomposition tables and the undistributed cell table
+    ext_cases = extended_k1_cases(k1, flush)
     del flush
 
     phase("3 main path")
@@ -1552,6 +2076,11 @@ def main() -> int:
     phase("6 options")
     options_out = options(k1, card)
 
+    # phase 8 runs before 7, whose 2D run takes the length the budget left
+    # allows
+    phase("8 extended")
+    ext_out = extended(k1, card)
+
     phase("7 tof")
     tof_out = tof(k1, card)
     signal.alarm(0)
@@ -1570,17 +2099,22 @@ def main() -> int:
                      + sum(glow_out["launches"].values())
                      + sum(option_launches.values())
                      + sum(tof_out["1d_launches"].values())
-                     + sum(tof_out["2d_launches"].values())),
+                     + sum(tof_out["2d_launches"].values())
+                     + sum(ext_out["launches"].values())),
         "launches_by_path": {"restart": launches,
                              "fresh_window": window["launches"],
                              "rescue": rescue_out["launches"],
                              "glow": glow_out["launches"],
                              "options": dict(option_launches),
                              "tof_1d": tof_out["1d_launches"],
-                             "tof_2d": tof_out["2d_launches"]},
+                             "tof_2d": tof_out["2d_launches"],
+                             "extended": ext_out["launches"]},
+        "extended_launches_by_shape":
+            ext_out["distributed_step"]["launches_by_shape"],
         "glow_launches_by_shape": glow_out["launches_by_shape"],
         "max_abs_err": max(c["max_abs_err"] for c in
-                           cases + compact + glow_cases + tof_cases),
+                           cases + compact + glow_cases + tof_cases
+                           + ext_cases),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
         "library_ms": main_case["library_ms"],
@@ -1590,7 +2124,7 @@ def main() -> int:
         # traces (each then ~4 us high, see devtime.event_ms); 0 in a
         # healthy run
         "event_timed": devtime.event_fallbacks,
-        "cases": cases + compact + glow_cases + tof_cases}]
+        "cases": cases + compact + glow_cases + tof_cases + ext_cases}]
     print(json.dumps({
         "kernels": kernels,
         "main_path": {"unknowns": unknowns,
@@ -1601,7 +2135,7 @@ def main() -> int:
                       "residual_rel_to_jax": rel},
         "fresh_window": window, "rescue": rescue_out, "glow": glow_out,
         "options": options_out,
-        "tof": tof_out}))
+        "tof": tof_out, "extended": ext_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -167,47 +167,56 @@ unsigned grid_for(int64_t items, int per_block) {
   return (unsigned)(blocks > 0 ? blocks : 1);
 }
 
+// Each launcher starts the empty kernel on its grid in place of the real one
+// when `noop` is set (`ell_noop`).
 template <typename T, int V, int CC>
-int run(const Args<T>& a, void* stream) {
-  ell_scatter_kernel<T, V, CC><<<grid_for(a.n_rows, kRows), kRows * CC, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(a);
+int run(const Args<T>& a, bool noop, void* stream) {
+  const unsigned grid = grid_for(a.n_rows, kRows);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (noop)
+    ell_noop_kernel<<<grid, kRows * CC, 0, s>>>();
+  else
+    ell_scatter_kernel<T, V, CC><<<grid, kRows * CC, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int run_generic(const Args<T>& a, void* stream) {
-  ell_scatter_generic_kernel<T><<<grid_for(a.n_rows * a.C, kThreads),
-                                  kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(a);
+int run_generic(const Args<T>& a, bool noop, void* stream) {
+  const unsigned grid = grid_for(a.n_rows * a.C, kThreads);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (noop)
+    ell_noop_kernel<<<grid, kThreads, 0, s>>>();
+  else
+    ell_scatter_generic_kernel<T><<<grid, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int V>
-int dispatch_c(const Args<T>& a, void* stream) {
+int dispatch_c(const Args<T>& a, bool noop, void* stream) {
   switch (a.C) {
-    case 1: return run<T, V, 1>(a, stream);
-    case 3: return run<T, V, 3>(a, stream);
-    case 9: return run<T, V, 9>(a, stream);
-    default: return run_generic<T>(a, stream);
+    case 1: return run<T, V, 1>(a, noop, stream);
+    case 3: return run<T, V, 3>(a, noop, stream);
+    case 9: return run<T, V, 9>(a, noop, stream);
+    default: return run_generic<T>(a, noop, stream);
   }
 }
 
 template <typename T>
 int launch(const void* idx, const void* rows, const void* flat, void* out,
            long long n_rows, int max_val, long long n_flat, int C,
-           int accumulate, void* stream) {
+           int accumulate, bool noop, void* stream) {
   if (n_rows <= 0 || C <= 0) return (int)cudaSuccess;
   const Args<T> a{static_cast<const int32_t*>(idx),
                   static_cast<const int32_t*>(rows),
                   static_cast<const T*>(flat), static_cast<T*>(out),
                   (int64_t)n_rows, (int64_t)n_flat, max_val, C, accumulate};
   switch (max_val) {
-    case 1: return dispatch_c<T, 1>(a, stream);
-    case 2: return dispatch_c<T, 2>(a, stream);
-    case 4: return dispatch_c<T, 4>(a, stream);
-    case 6: return dispatch_c<T, 6>(a, stream);
-    case 8: return dispatch_c<T, 8>(a, stream);
-    default: return run_generic<T>(a, stream);
+    case 1: return dispatch_c<T, 1>(a, noop, stream);
+    case 2: return dispatch_c<T, 2>(a, noop, stream);
+    case 4: return dispatch_c<T, 4>(a, noop, stream);
+    case 6: return dispatch_c<T, 6>(a, noop, stream);
+    case 8: return dispatch_c<T, 8>(a, noop, stream);
+    default: return run_generic<T>(a, noop, stream);
   }
 }
 
@@ -218,24 +227,24 @@ int launch(const void* idx, const void* rows, const void* flat, void* out,
       const void* idx, const void* flat, void* out, long long n_rows,        \
       int max_val, long long n_flat, int C, void* stream) {                  \
     return launch<T>(idx, nullptr, flat, out, n_rows, max_val, n_flat, C, 0, \
-                     stream);                                                \
+                     false, stream);                                         \
   }                                                                          \
   extern "C" int ell_scatter_add_##SUFFIX(                                   \
       const void* idx, const void* rows, const void* flat, void* out,        \
       long long n_rows, int max_val, long long n_flat, int C,                \
       void* stream) {                                                        \
     return launch<T>(idx, rows, flat, out, n_rows, max_val, n_flat, C, 1,    \
-                     stream);                                                \
+                     false, stream);                                         \
   }
 
 ELL_ENTRY_POINTS(float, f32)
 ELL_ENTRY_POINTS(double, f64)
 
-// An empty kernel on the grid a call over n_rows rows of C components
-// launches (the templated kernel's): the device time of a launch that does
-// no work, the floor of a latency-bound call.
-extern "C" int ell_noop(long long n_rows, int C, void* stream) {
-  ell_noop_kernel<<<grid_for(n_rows, kRows), kRows * C, 0,
-                    static_cast<cudaStream_t>(stream)>>>();
-  return (int)cudaGetLastError();
+// An empty kernel on the grid that a call over n_rows rows of C components
+// at valence max_val launches (chosen by the same `launch` switch): the
+// device time of a launch that does no work, the floor of a latency-bound
+// call.
+extern "C" int ell_noop(long long n_rows, int max_val, int C, void* stream) {
+  return launch<float>(nullptr, nullptr, nullptr, nullptr, n_rows, max_val, 0,
+                       C, 0, true, stream);
 }

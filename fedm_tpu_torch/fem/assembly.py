@@ -108,6 +108,7 @@ class _Batch:
     """Shared scatter / dtype handling of cell and facet batches."""
 
     _FLOAT_FIELDS: tuple = ()
+    _SHARD_FIELDS: tuple = ()
     gather_idx = None  # ELL table [n_dofs, max_val] int32 on the device
     scatter_rows = None  # live dofs [n_live] int32 (None: every dof)
     scatter_idx = None  # ELL table of the live dofs [n_live, max_val]
@@ -156,6 +157,35 @@ class _Batch:
             setattr(self, f, getattr(new, f))
         self.space = new.space
         self.__dict__.pop("_views", None)  # casts of the old tables
+
+    def local_view(self, arrays: dict, n_dofs: int) -> "_Batch":
+        """A batch of the same kind and quadrature over other elements:
+        `arrays` maps each name of `_SHARD_FIELDS` to a numpy array whose
+        leading axis is the new element axis, and the dofs index a nodal
+        array of `n_dofs` rows (the counterpart of the JAX package's
+        `local_view`). The domain decomposition builds its per-part
+        batches so, all parts stacked along the element axis. The view
+        scatters through the dense ELL table of its dofs, in place too
+        (`scatter_add` with rows=None), and never on the structured
+        slice/pad path."""
+        view = copy.copy(self)
+        view.__dict__.pop("_views", None)  # casts of the source's tables
+        view._structured = None
+        for f in self._SHARD_FIELDS:
+            a = np.ascontiguousarray(arrays[f])
+            if f == "dofs":
+                view.dofs_np = a.astype(self.dofs_np.dtype)
+                view.dofs = torch.as_tensor(view.dofs_np, device=self.device)
+            else:
+                setattr(view, f, torch.as_tensor(
+                    a, dtype=getattr(self, f).dtype, device=self.device))
+        view.n_dofs = int(n_dofs)
+        if "n_facets" in view.__dict__:
+            view.n_facets = view.dofs_np.shape[0]
+        view.gather_idx = torch.as_tensor(
+            build_ell_index(view.dofs_np, view.n_dofs), device=self.device)
+        view.scatter_rows, view.scatter_idx = None, view.gather_idx
+        return view
 
     def build_scatter_meta(self) -> None:
         """Switch `scatter` and `scatter_add` to the ELL gather-sum layout:
@@ -225,6 +255,8 @@ class CellBatch(_Batch):
 
     _FLOAT_FIELDS = ("N", "grads", "scale", "x_q", "h", "h_dir")
     _GEOM_FIELDS = ("grads", "scale", "x_q", "h", "h_dir")
+    # the per-cell tables (leading axis: the cell), what `local_view` takes
+    _SHARD_FIELDS = ("grads", "scale", "x_q", "dofs", "h", "h_dir")
 
     def __init__(self, space: FunctionSpace, quad_degree: int = 4,
                  axisymmetric: bool = False, dtype=None, *, device):
@@ -348,6 +380,9 @@ class FacetBatch(_Batch):
 
     _FLOAT_FIELDS = ("N", "grads", "scale", "normal", "x_q")
     _GEOM_FIELDS = _FLOAT_FIELDS
+    # the per-facet tables (N varies per facet here), what `local_view`
+    # takes
+    _SHARD_FIELDS = ("N", "grads", "scale", "normal", "x_q", "dofs")
 
     def __init__(self, space: FunctionSpace, markers=None,
                  quad_degree: int = 4, axisymmetric: bool = False,

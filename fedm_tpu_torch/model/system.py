@@ -14,15 +14,24 @@ log-densities. Kernels rebuild the absolute state as ctx['u_old'] + delta_e.
 
 Assembly is scatter . kernel . gather, each batch's scatter adding into one
 fresh zero tensor (`scatter_add`, in place on the ELL layout). Gather and
-scatter are linear, so the Jacobian action is
-J v = scatter(jvp(kernel)(gather(v))): forward-mode
-AD runs only through the plain-torch element kernels, never through the
+scatter are linear, so the Jacobian action is J v = scatter(J_e gather(v)),
+with J_e gather(v) the kernel's tangent along gather(v): forward-mode AD
+runs only through the plain-torch element kernels, never through the
 scatter (whose ELL branch is an opaque CUDA kernel). The node-block Jacobi
 preconditioner pushes the n_local*n_eq local tangent basis vectors through
-the kernels the same way and keeps the same-node blocks; the same pass
-gives the transport z-line couplings (`enable_transport_zline`) and, with
+the kernels the same way and keeps the same-node blocks; the same tangents
+give the transport z-line couplings (`enable_transport_zline`) and, with
 absolute values, the row norms of the row-equilibrated system
 (`row_scaled`).
+
+In float64 the basis vectors go through the kernels in one pass per Newton
+iterate (`torch.func.vmap` over `torch.func.jvp`), and every J v applies
+the element Jacobians J_e [n_elems, n_local*n_eq, n_local*n_eq] they
+form: one batched product in place of a forward-mode pass. In float32
+every J v is a forward-mode pass of its own and each basis vector one
+more, as the JAX package computes them: there the element Jacobians'
+other summation order moves the adaptive trajectories (dt) by ~1e-5, more
+than they are held to the JAX package's.
 
 `step` runs the host loop (`newton_solve`) when `NewtonConfig.host_loop`
 is set and the system is not row-scaled, else the whole-solve loop
@@ -78,10 +87,21 @@ class StepOperators:
         self.n_dofs, self.n_eq = system.n_dofs, system.n_eq
         self.dtype = dtype
         self.mask = system.bcs.mask
-        self.batches = [(b.astype(dtype), k) for b, k in system._batches()]
+        self._setup([(b.astype(dtype), k) for b, k in system._batches()],
+                    system.bcs.values_at(params.t), u_old, u_old1, params,
+                    aux)
+
+    def _setup(self, batches, g, u_old, u_old1, params, aux) -> None:
+        """The batches, the Dirichlet shift u_old - g and each batch's
+        kernel context, the state's nodal tensors mapped by `_in` (the
+        identity here; the domain decomposition's halo fill) before they
+        are gathered."""
+        dtype = self.dtype
+        self.batches = batches
+        # J v and the tangents from the element Jacobians (module docstring)
+        self.element_jacobian = dtype == torch.float64
         d_hist = (u_old - u_old1).to(dtype)
-        self.bc_shift = (u_old - system.bcs.values_at(params.t)).to(dtype)
-        u_old_c = u_old.to(dtype)
+        self.bc_shift = (u_old - g).to(dtype)
         p = StepParams(*(torch.tensor(x, dtype=dtype, device=u_old.device)
                          for x in params))
 
@@ -90,21 +110,32 @@ class StepOperators:
                 return v.to(dtype)
             return v
 
-        aux_c = {k: cast(v) for k, v in (aux or {}).items()}
+        def nodal(v):
+            return (isinstance(v, torch.Tensor) and v.dim() >= 1
+                    and v.shape[0] == u_old.shape[0])
+
+        aux = {k: cast(v) for k, v in (aux or {}).items()}
+        aux_in = {k: self._in(v) if nodal(v) else v for k, v in aux.items()}
+        u_old_in, d_hist_in = self._in(u_old.to(dtype)), self._in(d_hist)
 
         def ctx(b):
-            def maybe_gather(v):
-                if (isinstance(v, torch.Tensor) and v.dim() >= 1
-                        and v.shape[0] == self.n_dofs):
-                    return b.gather(v)
-                return v
-
-            c = {name: maybe_gather(v) for name, v in aux_c.items()}
-            c.update(u_old=b.gather(u_old_c), d_hist=b.gather(d_hist),
+            c = {name: b.gather(v) if nodal(aux[name]) else v
+                 for name, v in aux_in.items()}
+            c.update(u_old=b.gather(u_old_in), d_hist=b.gather(d_hist_in),
                      params=p)
             return c
 
         self.ctxs = [ctx(b) for b, _ in self.batches]
+        # (delta, its version, per-batch tangents) of the last delta
+        self._tangents = None
+
+    def _in(self, x: torch.Tensor) -> torch.Tensor:
+        """A state-layout tensor as the batches gather it."""
+        return x
+
+    def _out(self, r: torch.Tensor) -> torch.Tensor:
+        """The batches' summed scatter as a state-layout tensor."""
+        return r
 
     def _zeros(self, *trailing):
         return torch.zeros((self.n_dofs,) + trailing, dtype=self.dtype,
@@ -113,30 +144,91 @@ class StepOperators:
     def residual(self, delta: torch.Tensor) -> torch.Tensor:
         """R(delta), Dirichlet rows delta + (u_old - g)."""
         delta = delta.to(self.dtype)
+        d_in = self._in(delta)
         out = self._zeros(self.n_eq)
         for (batch, kernel), ctx in zip(self.batches, self.ctxs):
             out = batch.scatter_add(
-                out, kernel(batch, batch.gather(delta), ctx))
-        return torch.where(self.mask, delta + self.bc_shift, out)
+                out, kernel(batch, batch.gather(d_in), ctx))
+        return torch.where(self.mask, delta + self.bc_shift, self._out(out))
 
     def jacobian_action(self, delta: torch.Tensor) -> Callable:
-        """v -> J(delta) v (Dirichlet rows identity)."""
-        lin = [(batch, ctx, batch.gather(delta), kernel)
+        """v -> J(delta) v (Dirichlet rows identity). With
+        `element_jacobian`, each product applies the element Jacobians
+        [n_elems, n_local*n_eq, n_local*n_eq] of `_all_tangents` (one
+        batched forward-mode pass per delta, shared with the node blocks);
+        otherwise each product is a forward-mode pass of its own."""
+        if self.element_jacobian:
+            Js = [T.reshape(T.shape[0], -1).t().reshape(
+                T.shape[1], T.shape[0], T.shape[0]).contiguous()
+                for T in self._all_tangents(delta)]
+
+            def apply_elem(v: torch.Tensor) -> torch.Tensor:
+                v_in = self._in(v)
+                out = self._zeros(self.n_eq)
+                for (batch, _), J in zip(self.batches, Js):
+                    v_e = batch.gather(v_in).reshape(J.shape[0], -1, 1)
+                    out = batch.scatter_add(
+                        out, torch.bmm(J, v_e).reshape(batch.dofs.shape
+                                                       + (self.n_eq,)))
+                return torch.where(self.mask, v, self._out(out))
+
+            return apply_elem
+        d_in = self._in(delta)
+        lin = [(batch, ctx, batch.gather(d_in), kernel)
                for (batch, kernel), ctx in zip(self.batches, self.ctxs)]
 
         def apply(v: torch.Tensor) -> torch.Tensor:
+            v_in = self._in(v)
             out = self._zeros(self.n_eq)
             for batch, ctx, u_e, kernel in lin:
-                t = _jvp(kernel, batch, ctx, u_e, batch.gather(v))
+                t = _jvp(kernel, batch, ctx, u_e, batch.gather(v_in))
                 out = batch.scatter_add(out, t)
-            return torch.where(self.mask, v, out)
+            return torch.where(self.mask, v, self._out(out))
 
         return apply
 
-    def _local_tangents(self, batch, kernel, ctx, delta):
-        """(a, j, t) for every local tangent basis vector e_(a, j): t is
-        the kernel's tangent [n_elems, n_local, n_eq] along it."""
-        u_e = batch.gather(delta)
+    def _all_tangents(self, delta: torch.Tensor) -> list:
+        """Per batch, the kernel's tangents along every local basis vector
+        e_(a, j) at `delta`, T [n_local*n_eq, n_elems, n_local, n_eq] with
+        row a*n_eq + j: one forward-mode pass with the basis batched
+        (`torch.func.vmap` over `torch.func.jvp`), cached for the last
+        `delta` (Newton asks for J v and the node blocks at one iterate)."""
+        key = (delta, delta._version)
+        if self._tangents is None or (self._tangents[0] is not key[0]
+                                      or self._tangents[1] != key[1]):
+            from torch.func import jvp, vmap
+
+            d_in = self._in(delta)
+            Ts = []
+            for (batch, kernel), ctx in zip(self.batches, self.ctxs):
+                u_e = batch.gather(d_in)
+                n_elems, nl = batch.dofs.shape
+                k = nl * self.n_eq
+                basis = torch.eye(k, dtype=u_e.dtype, device=u_e.device
+                                  ).reshape(k, 1, nl, self.n_eq).expand(
+                    k, n_elems, nl, self.n_eq)
+
+                def push(t, batch=batch, kernel=kernel, ctx=ctx, u_e=u_e):
+                    return jvp(lambda ue: kernel(batch, ue, ctx), (u_e,),
+                               (t,))[1]
+
+                Ts.append(vmap(push)(basis))
+            self._tangents = key + (Ts,)
+        return self._tangents[2]
+
+    def _local_tangents(self, bi: int, delta: torch.Tensor):
+        """(a, j, t) for every local tangent basis vector e_(a, j) of batch
+        `bi`: t is the kernel's tangent [n_elems, n_local, n_eq] along it
+        at `delta` (from `_all_tangents` with `element_jacobian`, else
+        one forward-mode pass each)."""
+        if self.element_jacobian:
+            T = self._all_tangents(delta)[bi]
+            for a in range(T.shape[2]):
+                for j in range(self.n_eq):
+                    yield a, j, T[a * self.n_eq + j]
+            return
+        (batch, kernel), ctx = self.batches[bi], self.ctxs[bi]
+        u_e = batch.gather(self._in(delta))
         for a in range(u_e.shape[1]):
             for j in range(self.n_eq):
                 tan = torch.zeros_like(u_e)
@@ -156,8 +248,7 @@ class StepOperators:
         ne = self.n_eq
         blocks = self._zeros(ne, ne)
         zc = None
-        for bi, ((batch, kernel), ctx) in enumerate(zip(self.batches,
-                                                         self.ctxs)):
+        for bi, (batch, _) in enumerate(self.batches):
             n_elems, nl = batch.dofs.shape
             # diag[c, a, i, j] = d contrib(c, a, i) / d u_e(c, a, j)
             diag = torch.empty((n_elems, nl, ne, ne), dtype=self.dtype,
@@ -167,7 +258,7 @@ class StepOperators:
                 eqs, m_sub, m_sup = zline
                 cross = torch.zeros((n_elems, nl, len(eqs), 2),
                                     dtype=self.dtype, device=delta.device)
-            for a, j, t in self._local_tangents(batch, kernel, ctx, delta):
+            for a, j, t in self._local_tangents(bi, delta):
                 diag[:, a, :, j] = t[:, a, :]
                 if cross is not None and j in eqs:
                     k = eqs.index(j)
@@ -176,6 +267,7 @@ class StepOperators:
             blocks = batch.scatter_add(blocks, diag)
             if cross is not None:
                 zc = batch.scatter_add(self._zeros(len(eqs), 2), cross)
+        blocks = self._out(blocks)
         eye = torch.eye(ne, dtype=self.dtype, device=blocks.device)
         blocks = torch.where(self.mask[:, :, None], eye, blocks)
         if zline is None:
@@ -189,12 +281,12 @@ class StepOperators:
         n_eq]: sum over elements and local columns of |d contrib / d
         delta|, neighbour couplings included."""
         norms = self._zeros(self.n_eq)
-        for (batch, kernel), ctx in zip(self.batches, self.ctxs):
+        for bi, (batch, _) in enumerate(self.batches):
             contrib = None
-            for _, _, t in self._local_tangents(batch, kernel, ctx, delta):
+            for _, _, t in self._local_tangents(bi, delta):
                 contrib = t.abs() if contrib is None else contrib + t.abs()
             norms = batch.scatter_add(norms, contrib)
-        return norms
+        return self._out(norms)
 
 
 class CoupledSystem:

@@ -217,6 +217,31 @@ class PlasmaModel:
                     dtype=self.batch.dtype, device=dev)
                 self.system.enable_elliptic_precond(self.n_eq - 1, mg=self.mg)
 
+    # -- domain decomposition ------------------------------------------------
+
+    _dist = None
+
+    def distribute(self, devices):
+        """Swap the system for a DOF-partitioned `DistributedSystem` over
+        `devices` (N parts; `parallel.dd`). Call before `initial_state()`,
+        which then gives the state in the distributed layout. The
+        per-advance coefficient update gathers the state back to the
+        original numbering and scatters its fields to the distributed
+        layout (once per advance, beside the halo-exchanged inner
+        loops)."""
+        from ..parallel.dd import DistributedSystem
+
+        self._dist = DistributedSystem(self.system, devices)
+        self.system = self._dist
+        base_update = self._update_aux
+
+        def update_dist(u_dist):
+            return self._dist.scatter_aux(
+                base_update(self._dist.gather_global(u_dist)))
+
+        self._update_aux = update_dist
+        return self._dist
+
     # -- per-species metadata -----------------------------------------------
 
     def _derive_species_meta(self):
@@ -503,6 +528,8 @@ class PlasmaModel:
                                   torch.as_tensor(mask, device=dev), g,
                                   tol=1e-12)
         u[:, self.n_eq - 1] = phi
+        if self._dist is not None:
+            u = self._dist.to_dist(u)
         # u_old1 = 0 as the reference initialises it; the first step runs
         # as BDF1, so it does not enter
         return TimeState(u=u, u_old=u, u_old1=torch.zeros_like(u), t=0.0,

@@ -665,6 +665,16 @@ class StreamerModel:
 
     # -- initial state --------------------------------------------------------
 
+    def distribute(self, devices):
+        """Swap the system for a DOF-partitioned `DistributedSystem` over
+        `devices` (N parts; `parallel.dd`). Call before `initial_state()`,
+        which then gives the state in the distributed layout; its Poisson
+        solve keeps the inner system's preconditioner."""
+        from ..parallel.dd import DistributedSystem
+
+        self.system = DistributedSystem(self.system, devices)
+        return self.system
+
     def initial_state(self) -> TimeState:
         """Gaussian ion seed and uniform electrons
         (`fedm-streamer.py:169-172`) and the initial Poisson solve for Phi
@@ -694,7 +704,7 @@ class StreamerModel:
         anode = np.isclose(z, cfg.box_height)
         g = np.where(anode, cfg.U_w, 0.0)
         tol = 1e-12 if self.batch.dtype == f64 else 1e-6
-        ell = self.system._ell
+        ell = getattr(self.system, "inner", self.system)._ell
         phi, relres, iters = solve_poisson(
             self.batch, rho_q, torch.as_tensor(cathode | anode, device=dev),
             torch.as_tensor(g, dtype=self.batch.dtype, device=dev),
@@ -706,6 +716,9 @@ class StreamerModel:
             raise RuntimeError(f"initial Poisson solve did not converge "
                                f"(relres={relres:.2e})")
         u = torch.stack([u_ion, u_el, phi.to(f64)], dim=-1)
+        to_dist = getattr(self.system, "to_dist", None)
+        if to_dist is not None:
+            u = to_dist(u)
         return TimeState(u=u, u_old=u, u_old1=u, t=0.0, dt=cfg.dt_init,
                          dt_old=1e30)
 

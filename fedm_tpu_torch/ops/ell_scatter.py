@@ -58,7 +58,7 @@ def _lib() -> ctypes.CDLL:
     # (idx, [rows,] flat, out, n_rows, max_val, n_flat, C, stream); every
     # pointer and the stream as c_void_p
     dense = [p, p, p, ll, i, ll, i, p]
-    signatures = {"ell_noop": [ll, i, p]}
+    signatures = {"ell_noop": [ll, i, i, p]}
     for s in _SUFFIX.values():
         signatures[f"ell_scatter_{s}"] = dense
         signatures[f"ell_scatter_add_{s}"] = [p] + dense
@@ -177,11 +177,11 @@ def ell_scatter_add_(out: torch.Tensor, flat: torch.Tensor,
     return out
 
 
-def ell_noop(n_rows: int, C: int, device="cuda") -> None:
+def ell_noop(n_rows: int, max_val: int, C: int, device="cuda") -> None:
     """Launch the empty kernel of `csrc/ell_scatter.cu` on the grid of a call
-    over `n_rows` rows of `C` components (the floor that chip_smoke.py
-    times)."""
-    _raise_on(_lib().ell_noop(n_rows, C,
+    over `n_rows` rows of `max_val` slots and `C` components (the floor that
+    chip_smoke.py times)."""
+    _raise_on(_lib().ell_noop(n_rows, max_val, C,
                               torch.cuda.current_stream(device).cuda_stream),
               "ell_noop")
 

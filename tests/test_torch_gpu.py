@@ -504,3 +504,74 @@ def test_tof_1d_short_run_on_cuda(cuda):
     assert np.linalg.norm(ug - uc) <= 1e-11 * np.linalg.norm(uc)
     assert eg[0][0] == ec[0][0]
     assert abs(eg[0][1] - ec[0][1]) <= 1e-11 * ec[0][1]
+
+
+def _extended_dd(device, tmp_path, nx=8, ny=16, n_parts=8):
+    """The extended scheme (18 species) on a small crossed mesh, and the
+    same model distributed over `n_parts` parts on `device`."""
+    from fedm_tpu_torch.examples import extended_scheme
+    from fedm_tpu_torch.models.argon_synth import generate_argon_n_input
+
+    root = generate_argon_n_input(tmp_path, n_excited=13)
+    args = extended_scheme.parse_args(["--device", str(device), "--nx",
+                                       str(nx), "--ny", str(ny)])
+    m = extended_scheme.build_model(args, tmp_path, root.name)
+    md = extended_scheme.build_model(args, tmp_path, root.name)
+    return m, md, md.distribute([device] * n_parts)
+
+
+@pytest.mark.parametrize("C", [19, 361])
+def test_ell_dense_kernel_at_the_dd_cell_table(cuda, tmp_path, C):
+    """The domain decomposition's stacked cell table (8 parts, trash rows
+    included), in place, float64, at the residual's C = 19 and the node
+    blocks' C = 361, against the plain version."""
+    _, _, d = _extended_dd("cpu", tmp_path)
+    b = d._batches[0][0]
+    assert b.gather_idx.shape[0] == d.n_parts * d.n_ext
+    rng = np.random.default_rng(C)
+    flat = torch.as_tensor(rng.standard_normal((b.dofs.numel(), C)))
+    out0 = torch.as_tensor(rng.standard_normal((b.gather_idx.shape[0], C)))
+    ref = ell_scatter_add_ref(out0.clone(), flat, b.gather_idx)
+    got = ell_scatter_add_(out0.to(cuda), flat.to(cuda),
+                           b.gather_idx.to(cuda))
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-13, atol=1e-13)
+
+
+def test_distributed_residual_on_cuda(cuda, tmp_path):
+    """The extended scheme's float64 residual and node blocks, 8 parts on
+    the card, against the undistributed model on the CPU (rtol 1e-10, atol
+    1e-12 of the largest entry), with K1's dense in-place form launched at
+    C = 19 and C = 361; phantom rows stay identity rows."""
+    m, _, _ = _extended_dd("cpu", tmp_path / "cpu")
+    _, mg, dg = _extended_dd(cuda, tmp_path / "gpu")
+    s, sg = m.initial_state(), mg.initial_state()
+    p = StepParams(s.t + s.dt, s.dt, s.dt_old)
+    aux, auxg = m._update_aux(s.u), mg._update_aux(sg.u)
+    launches = launch_count("ell_scatter_add_")
+    F = m.system.residual(s.u, s.u, s.u_old1, p, aux=aux)
+    Fg = dg.residual(sg.u, sg.u, sg.u_old1, p, aux=auxg)
+    B = m.system.operators(s.u, s.u_old1, p, aux=aux).jacobian_blocks(
+        torch.zeros_like(s.u))
+    Bg = dg.operators(sg.u, sg.u_old1, p, aux=auxg).jacobian_blocks(
+        torch.zeros_like(sg.u))
+    assert launch_count("ell_scatter_add_") >= launches + 2
+    for got, ref in ((dg.from_dist(Fg), F.numpy()),
+                     (dg.from_dist(Bg), B.numpy())):
+        np.testing.assert_allclose(got, ref, rtol=1e-10,
+                                   atol=1e-12 * np.abs(ref).max())
+    phantom = np.setdiff1d(np.arange(dg.n_dofs_dist), dg._slot_of)
+    assert not Fg[phantom].any()
+    assert torch.equal(Bg[phantom].cpu(), torch.eye(19, dtype=Bg.dtype)
+                       .expand(len(phantom), 19, 19))
+
+
+@pytest.mark.parametrize("max_val, C", [(6, 1), (6, 19), (6, 361), (7, 1)])
+def test_empty_kernel_launches_at_every_width(cuda, max_val, C):
+    """The empty kernel (the floor chip_smoke.py times) launches on the
+    grid of a call at (max_val, C), chosen by the real call's own switch:
+    the templated kernel's at C = 1, the generic kernel's at a C or a
+    valence without an instantiation."""
+    from fedm_tpu_torch.ops.ell_scatter import ell_noop
+
+    ell_noop(4696, max_val, C)
+    torch.cuda.synchronize()

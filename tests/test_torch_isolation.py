@@ -21,6 +21,7 @@ from fedm_tpu_torch.fem import (BCSet, CellBatch, FacetBatch, combine_bcs,
 from fedm_tpu_torch.fem.postprocess import normal_vector
 from fedm_tpu_torch.fem.interpolation import p1_transfer
 from fedm_tpu_torch.io import load_checkpoint
+from fedm_tpu_torch.examples import extended_scheme
 from fedm_tpu_torch.models.generic import PlasmaModel
 from fedm_tpu_torch.models.tof import TimeOfFlight1D, TimeOfFlight2D
 from fedm_tpu_torch.models.streamer import (ALPHA_EXPR, D_E_EXPR, MU_E_EXPR,
@@ -54,6 +55,21 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_port_source_list_is_complete():
     assert len(PORT_SOURCES) > 25
+    names = {str(p.relative_to(ROOT)) for p in PORT_SOURCES}
+    assert {"fedm_tpu_torch/native/__init__.py",
+            "fedm_tpu_torch/mesh/reorder.py",
+            "fedm_tpu_torch/mesh/io_xml.py",
+            "fedm_tpu_torch/parallel/dd.py",
+            "fedm_tpu_torch/examples/extended_scheme.py"} <= names
+
+
+def test_native_source_is_the_ports_own_copy():
+    """The port builds its own C++ source, not the JAX package's."""
+    from fedm_tpu_torch import native
+
+    assert native.SOURCE == ROOT / "fedm_tpu_torch" / "csrc" / \
+        "fedm_native.cpp"
+    assert "fedm_tpu/native" not in native.SOURCE.read_text()
 
 
 @pytest.mark.parametrize("entry", [StreamerModel.__init__, load_checkpoint,
@@ -64,6 +80,24 @@ def test_port_source_list_is_complete():
                                    convert.field_from_array])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_extended_scheme_defaults_to_cuda():
+    assert extended_scheme.parse_args([]).device == "cuda"
+
+
+@pytest.mark.parametrize("cls", ["PlasmaModel", "StreamerModel",
+                                 "DistributedSystem"])
+def test_distribute_takes_its_devices_from_the_caller(cls):
+    """No default: the parts' devices reach the decomposition only from
+    the caller."""
+    from fedm_tpu_torch.parallel import DistributedSystem
+
+    fn = {"PlasmaModel": PlasmaModel.distribute,
+          "StreamerModel": StreamerModel.distribute,
+          "DistributedSystem": DistributedSystem.__init__}[cls]
+    param = inspect.signature(fn).parameters["devices"]
+    assert param.default is inspect.Parameter.empty
 
 
 @pytest.mark.parametrize("cls", [CellBatch, FacetBatch, BCSet,
