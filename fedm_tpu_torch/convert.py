@@ -8,6 +8,9 @@ as numpy arrays — as `fedm_tpu.io.checkpoint.load_checkpoint` or a JAX
 `TimeState` (through `np.asarray`) hands them out. A fixed-dt run such as
 the time-of-flight models keeps one field, u [n_dofs, n_eq] (P1 or P2
 dofs), which `field_from_array` moves (`.cpu().numpy()` moves it back).
+A batched sweep's state (the JAX `SweepState`: the same fields with a
+leading member axis) moves with `sweep_state_from_arrays`, from one such
+state or from a list of single states.
 """
 
 from __future__ import annotations
@@ -55,3 +58,32 @@ def state_to_arrays(state: TimeState) -> dict:
     out["max_error"] = np.asarray(state.max_error, np.float64)
     out.update({k: int(getattr(state, k)) for k in COUNTERS})
     return out
+
+
+def sweep_state_from_arrays(src, device="cuda"):
+    """Build the port's `SweepState` (float64 [B, n_dofs, n_eq] tensors on
+    `device`, [B] numpy scalars) from a mapping or an object with the JAX
+    SweepState's fields, or from a sequence of single states (mappings or
+    objects with the JAX TimeState's fields), stacked in order as
+    `BatchedSweep.from_states` stacks them."""
+    from .parallel.sweep import SweepState
+
+    dev = resolve_device(device)
+    if isinstance(src, (list, tuple)):
+        singles = [state_from_arrays(s, dev) for s in src]
+        return SweepState(
+            **{k: torch.stack([getattr(s, k) for s in singles])
+               for k in FIELDS},
+            **{k: np.array([getattr(s, k) for s in singles])
+               for k in SCALARS},
+            max_error=np.array([s.max_error for s in singles]))
+
+    def get(name):
+        return src[name] if isinstance(src, Mapping) else getattr(src, name)
+
+    return SweepState(
+        **{k: torch.tensor(np.asarray(get(k), np.float64), device=dev)
+           for k in FIELDS},
+        **{k: np.array(np.asarray(get(k)), np.float64)
+           for k in SCALARS + ("max_error",)},
+        **{k: np.array(np.asarray(get(k)), int) for k in COUNTERS})

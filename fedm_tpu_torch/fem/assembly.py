@@ -104,6 +104,18 @@ def build_ell_index_compact(dofs: np.ndarray, n_dofs: int):
             build_ell_index(flat, n_dofs)[rows])
 
 
+def _live_table(dofs: np.ndarray, n_dofs: int, dead=None) -> np.ndarray:
+    """`build_ell_index(dofs, n_dofs)` with the elements marked `dead`
+    given no slot: their entries point at an extra row that is dropped,
+    and the table is cut to the widest remaining row."""
+    if dead is None or not np.any(dead):
+        return build_ell_index(dofs, n_dofs)
+    d = np.where(np.asarray(dead)[:, None], n_dofs, dofs)
+    table = build_ell_index(d, n_dofs + 1)[:n_dofs]
+    width = max(int((table < d.size).sum(axis=1).max()), 1)
+    return np.ascontiguousarray(table[:, :width])
+
+
 class _Batch:
     """Shared scatter / dtype handling of cell and facet batches."""
 
@@ -158,16 +170,18 @@ class _Batch:
         self.space = new.space
         self.__dict__.pop("_views", None)  # casts of the old tables
 
-    def local_view(self, arrays: dict, n_dofs: int) -> "_Batch":
+    def local_view(self, arrays: dict, n_dofs: int,
+                   dead=None) -> "_Batch":
         """A batch of the same kind and quadrature over other elements:
         `arrays` maps each name of `_SHARD_FIELDS` to a numpy array whose
         leading axis is the new element axis, and the dofs index a nodal
         array of `n_dofs` rows (the counterpart of the JAX package's
         `local_view`). The domain decomposition builds its per-part
-        batches so, all parts stacked along the element axis. The view
-        scatters through the dense ELL table of its dofs, in place too
-        (`scatter_add` with rows=None), and never on the structured
-        slice/pad path."""
+        batches so, all parts stacked along the element axis, and a batched
+        sweep its B members. The view scatters through ELL tables of its
+        dofs as `build_scatter_meta` builds them, never on the structured
+        slice/pad path. `dead` [n_elems] bool marks padding elements whose
+        contributions nobody reads: they get no slot in either table."""
         view = copy.copy(self)
         view.__dict__.pop("_views", None)  # casts of the source's tables
         view._structured = None
@@ -182,23 +196,24 @@ class _Batch:
         view.n_dofs = int(n_dofs)
         if "n_facets" in view.__dict__:
             view.n_facets = view.dofs_np.shape[0]
-        view.gather_idx = torch.as_tensor(
-            build_ell_index(view.dofs_np, view.n_dofs), device=self.device)
-        view.scatter_rows, view.scatter_idx = None, view.gather_idx
+        view.build_scatter_meta(dead)
         return view
 
-    def build_scatter_meta(self) -> None:
+    def build_scatter_meta(self, dead=None) -> None:
         """Switch `scatter` and `scatter_add` to the ELL gather-sum layout:
         the table over every dof and the one compacted to the live dofs
-        (the same tensor where every dof is live)."""
-        self.gather_idx = torch.as_tensor(
-            build_ell_index(self.dofs_np, self.n_dofs), device=self.device)
-        rows, idx = build_ell_index_compact(self.dofs_np, self.n_dofs)
-        if rows.size == self.n_dofs:
+        (the same tensor where every dof is live); elements marked `dead`
+        get no slot (`local_view`)."""
+        table = _live_table(self.dofs_np, self.n_dofs, dead)
+        self.gather_idx = torch.as_tensor(table, device=self.device)
+        live = np.flatnonzero((table < self.dofs_np.size).any(axis=1))
+        if live.size == self.n_dofs:
             self.scatter_rows, self.scatter_idx = None, self.gather_idx
         else:
-            self.scatter_rows = torch.as_tensor(rows, device=self.device)
-            self.scatter_idx = torch.as_tensor(idx, device=self.device)
+            self.scatter_rows = torch.as_tensor(live.astype(np.int32),
+                                                device=self.device)
+            self.scatter_idx = torch.as_tensor(table[live],
+                                               device=self.device)
 
     def scatter(self, contrib: torch.Tensor) -> torch.Tensor:
         """[n_elems, n_local, ...] -> global [n_dofs, ...]."""

@@ -7,8 +7,11 @@ Where the fine domain is covered by the coarse mesh (any nesting the
 structured generators produce), each fine node's value is the P1
 interpolation of the coarse nodal values of its containing coarse cell: a
 static [n_fine, 3] index/weight table — a pure-gather prolongation, and its
-transpose, a segment sum (`index_add_`), for the restriction. Point location
-bins the coarse cells' bounding boxes on a uniform grid (host numpy, once).
+transpose, a segment sum for the restriction, summed by K1's dense form
+over the table's transpose (`restrict_table`), so in a fixed order on the
+card too. Trailing dims of the transferred vectors are independent
+right-hand sides. Point location bins the coarse cells' bounding boxes on
+a uniform grid (host numpy, once).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.ell_scatter import ell_scatter
+from .assembly import build_ell_index
 from .space import FunctionSpace
 
 
@@ -95,19 +100,36 @@ def p1_transfer(coarse: FunctionSpace, fine: FunctionSpace, dtype=None,
             torch.as_tensor(w, dtype=dtype, device=device))
 
 
+def _wb(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """w [n_fine, 3] against x [n_fine, 3, ...]."""
+    return w.reshape(tuple(w.shape) + (1,) * (x.dim() - 2))
+
+
 def prolong(idx: torch.Tensor, w: torch.Tensor,
             u_coarse: torch.Tensor) -> torch.Tensor:
-    return (w * u_coarse[idx]).sum(dim=-1)
+    uc = u_coarse[idx]
+    return (_wb(w, uc) * uc).sum(dim=1)
+
+
+def restrict_table(idx: torch.Tensor, n_coarse: int) -> torch.Tensor:
+    """The transpose of `p1_transfer`'s idx as an ELL table [n_coarse,
+    max_val] int32 over the flat [n_fine * 3] weighted residuals, on idx's
+    device (built on the host, once per level pair)."""
+    return torch.as_tensor(build_ell_index(idx.cpu().numpy(), n_coarse),
+                           device=idx.device)
 
 
 def restrict(idx: torch.Tensor, w: torch.Tensor, r_fine: torch.Tensor,
-             n_coarse: int) -> torch.Tensor:
+             n_coarse: int, table: torch.Tensor = None) -> torch.Tensor:
     """Transpose of `prolong`: the segment sum of the weighted fine
-    residuals (the JAX package's `segment_sum`; no Pallas kernel computes
-    it)."""
-    vals = (w * r_fine[:, None]).reshape(-1)
-    out = torch.zeros(n_coarse, dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, idx.reshape(-1), vals)
+    residuals (the JAX package's `segment_sum`), through K1's dense form
+    over `table` (`restrict_table(idx, n_coarse)`, built here when not
+    given), each coarse row summed in fine-row order."""
+    if table is None:
+        table = restrict_table(idx, n_coarse)
+    vals = r_fine[:, None] * _wb(w, r_fine[:, None])
+    return ell_scatter(vals.reshape((-1,) + tuple(r_fine.shape[1:]))
+                       .contiguous(), table)
 
 
 def prolong_axis(U: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -150,13 +172,26 @@ class StructuredTransfer:
         self._wz = torch.as_tensor(wz, dtype=dtype, device=device)
 
     def prolong(self, e_c: torch.Tensor) -> torch.Tensor:
-        E = e_c.reshape(self.njc, self.nic)          # [j, i] layout
+        """[n_c] or [n_c, b] (b right-hand sides) -> [n_f(, b)]."""
+        E = self._grid(e_c, self.njc, self.nic)      # [(b,) j, i] layout
         E = prolong_axis(E, self._wx)               # along i
-        E = prolong_axis(E.T, self._wz).T           # along j
-        return E.reshape(-1)
+        E = prolong_axis(E.transpose(-1, -2), self._wz).transpose(-1, -2)
+        return self._flat(E, e_c)
 
     def restrict(self, r_f: torch.Tensor) -> torch.Tensor:
-        R = r_f.reshape(self.njf, self.nif)
+        R = self._grid(r_f, self.njf, self.nif)
         R = restrict_axis(R, self._wx)
-        R = restrict_axis(R.T, self._wz).T
-        return R.reshape(-1)
+        R = restrict_axis(R.transpose(-1, -2), self._wz).transpose(-1, -2)
+        return self._flat(R, r_f)
+
+    @staticmethod
+    def _grid(x: torch.Tensor, n_j: int, n_i: int) -> torch.Tensor:
+        if x.dim() == 1:
+            return x.reshape(n_j, n_i)
+        return x.reshape(n_j, n_i, -1).permute(2, 0, 1)
+
+    @staticmethod
+    def _flat(X: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        if like.dim() == 1:
+            return X.reshape(-1)
+        return X.permute(1, 2, 0).reshape((-1,) + tuple(like.shape[1:]))

@@ -51,7 +51,8 @@ from ..fem.assembly import CellBatch, FacetBatch
 from ..fem.dirichlet import BCSet
 from ..solvers.linear import _norm
 from ..solvers.linesmoother import tridiag_solve_pcr
-from ..solvers.newton import NewtonConfig, newton_krylov, newton_solve
+from ..solvers.newton import (NewtonConfig, newton_krylov,
+                              newton_krylov_batched, newton_solve)
 from ..solvers.precond import block_apply, invert_blocks
 
 
@@ -122,7 +123,7 @@ class StepOperators:
             c = {name: b.gather(v) if nodal(aux[name]) else v
                  for name, v in aux_in.items()}
             c.update(u_old=b.gather(u_old_in), d_hist=b.gather(d_hist_in),
-                     params=p)
+                     params=self._params_for(b, p))
             return c
 
         self.ctxs = [ctx(b) for b, _ in self.batches]
@@ -132,6 +133,11 @@ class StepOperators:
     def _in(self, x: torch.Tensor) -> torch.Tensor:
         """A state-layout tensor as the batches gather it."""
         return x
+
+    def _params_for(self, batch, p: StepParams) -> StepParams:
+        """The step parameters as `batch`'s kernels read them (the same
+        scalars for every element here)."""
+        return p
 
     def _out(self, r: torch.Tensor) -> torch.Tensor:
         """The batches' summed scatter as a state-layout tensor."""
@@ -351,7 +357,9 @@ class CoupledSystem:
         solve of that component's masked Laplacian: one V-cycle of `mg`
         (an object with `precond(r)`), any linear operator `solver`
         (r -> ~A^-1 r, e.g. `ZLineSmoother.solve`), or else a Chebyshev
-        polynomial of the given degree in the Jacobi-scaled operator."""
+        polynomial of the given degree in the Jacobi-scaled operator. The
+        multigrid and the Chebyshev solve take r [n_dofs] or [n_dofs, B],
+        B independent right-hand sides (`BatchedSystem`)."""
         from ..solvers.chebyshev import chebyshev_solver, power_iteration_lmax
         from ..solvers.elliptic import stiffness_diagonal
 
@@ -366,13 +374,16 @@ class CoupledSystem:
         dtilde = torch.where(mask | (diag == 0), 1.0, diag)
         A = self.masked_stiffness_op(eq)
 
+        def dt_like(x):
+            return dtilde.reshape(dtilde.shape + (1,) * (x.dim() - 1))
+
         def At(x):
-            return A(x) / dtilde
+            return A(x) / dt_like(x)
 
         lmax = power_iteration_lmax(At, self.n_dofs, iters=power_iters,
                                     device=mask.device)
         cheb = chebyshev_solver(At, lmax / ratio, 1.05 * lmax, degree)
-        self._ell = (eq, lambda r: cheb(r / dtilde))
+        self._ell = (eq, lambda r: cheb(r / dt_like(r)))
 
     def masked_stiffness_op(self, eq: int) -> Callable:
         """The masked Laplacian of component `eq` on [n_dofs] vectors
@@ -382,9 +393,10 @@ class CoupledSystem:
         b = self.cell_batch
 
         def A(x):
-            x_in = torch.where(mask, 0.0, x).to(b.dtype)
+            m = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
+            x_in = torch.where(m, 0.0, x).to(b.dtype)
             Ax = b.scatter(b.stiffness(b.grad(b.gather(x_in))))
-            return torch.where(mask, x, Ax)
+            return torch.where(m, x, Ax)
 
         return A
 
@@ -543,3 +555,160 @@ class CoupledSystem:
 
         return newton_krylov(residual, jacobian_action, delta, newton,
                              self.block_precond_builder(ops, w))
+
+
+# -- B independent members of one system (batched parameter sweeps) ----------
+
+
+class BatchedStepOperators(StepOperators):
+    """`StepOperators` of a `BatchedSystem`: B members' states stacked as
+    [B*n_dofs, n_eq] (member b's rows from b*n_dofs, a view of [B, n_dofs,
+    n_eq]), the batches' elements repeated per member with the dofs
+    offset, and each member's step parameters (t, dt, dt_old differ per
+    member, so do the BDF2 coefficients) broadcast to its elements as
+    [n_elems, 1] tensors in `ctx["params"]`. The Dirichlet values are each
+    member's `values_at(t)`. Every element scatters into its own member's
+    rows, so the members never mix."""
+
+    def __init__(self, bsys: "BatchedSystem", u_old: torch.Tensor,
+                 u_old1: torch.Tensor, params: StepParams, dtype,
+                 aux: Optional[Dict] = None):
+        B, n, ne = u_old.shape
+        self.n_members = B
+        self.n_dofs, self.n_eq = B * n, ne
+        self.dtype = dtype
+        self.mask = bsys.mask
+        bcs = bsys.inner.bcs
+        g = torch.stack([bcs.values_at(float(t)) for t in params.t])
+        aux = {k: (v.repeat((B,) + (1,) * (v.dim() - 1))
+                   if isinstance(v, torch.Tensor) and v.dim() >= 1
+                   and v.shape[0] == n else v)
+               for k, v in (aux or {}).items()}
+        self._setup([(b.astype(dtype), k) for b, k in bsys.batches],
+                    g.reshape(B * n, ne), u_old.reshape(B * n, ne),
+                    u_old1.reshape(B * n, ne), params, aux)
+
+    def _params_for(self, batch, p: StepParams) -> StepParams:
+        per = batch.dofs.shape[0] // self.n_members
+        return StepParams(*(x.repeat_interleave(per)[:, None] for x in p))
+
+
+class BatchedSystem:
+    """B independent members of one `CoupledSystem` (same mesh, model and
+    configuration; own states, step parameters and Dirichlet values),
+    solved together: one kernel call and one scatter launch per operation
+    for the whole batch. The layout is the stacked numbering of the domain
+    decomposition (`parallel.dd`) with B disconnected copies: each batch
+    is a `local_view` of its elements repeated B times, member b's dofs
+    offset by b*n_dofs, scattered by K1's dense in-place form (the cell
+    batch, every row live) or its compact form (the facet batches, their
+    live rows). The
+    structured slice/pad path is not used. The Newton and Krylov loops
+    carry a leading member axis (`newton_krylov_batched`) with per-member
+    scalars, norms and stopping; the elliptic solve of the Poisson row
+    takes the members as trailing right-hand sides.
+
+    `step` is `vmap` of the JAX package's `CoupledSystem._step`: the
+    whole-solve `newton_krylov` for every configuration. Row equilibration
+    and the transport z-lines are not batched (they raise)."""
+
+    def __init__(self, system: CoupledSystem, n_members: int):
+        if system.row_scaled or system._tzline is not None:
+            raise NotImplementedError(
+                "batched steps of a row-scaled system or one with transport "
+                "z-lines are not ported")
+        self.inner = system
+        self.n_members = B = int(n_members)
+        self.n_eq = system.n_eq
+        self.newton = system.newton
+        n = system.n_dofs
+        self.batches = []
+        for batch, kernel in system._batches():
+            arrays = {}
+            for f in batch._SHARD_FIELDS:
+                a = (batch.dofs_np if f == "dofs" else
+                     getattr(batch, f).cpu().numpy())
+                if f == "dofs":
+                    off = (np.arange(B, dtype=np.int64) * n)[:, None, None]
+                    a = (a[None].astype(np.int64) + off).reshape(
+                        (-1,) + a.shape[1:])
+                else:
+                    a = np.concatenate([a] * B)
+                arrays[f] = a
+            self.batches.append((batch.local_view(arrays, B * n), kernel))
+        self.mask = system.bcs.mask.repeat(B, 1)
+
+    @property
+    def dtype(self):
+        return self.inner.dtype
+
+    def operators(self, u_old, u_old1, params: StepParams, dtype=None,
+                  aux: Optional[Dict] = None) -> BatchedStepOperators:
+        return BatchedStepOperators(self, u_old, u_old1, params,
+                                    self.dtype if dtype is None else dtype,
+                                    aux)
+
+    def residual(self, u, u_old, u_old1, params: StepParams, dtype=None,
+                 aux: Optional[Dict] = None) -> torch.Tensor:
+        """Residuals [B, n_dofs, n_eq] at the absolute states `u`."""
+        ops = self.operators(u_old, u_old1, params, dtype, aux)
+        return ops.residual((u - u_old).reshape(ops.n_dofs, -1)
+                            .to(ops.dtype)).reshape(u.shape)
+
+    def block_precond_builder(self, ops: BatchedStepOperators) -> Callable:
+        """delta -> M on [B*n_dofs, n_eq]: the inverted node blocks of every
+        member, and on the elliptic row one solve with the B members'
+        columns as right-hand sides [n_dofs, B]."""
+        B, ell = self.n_members, self.inner._ell
+
+        def build(delta):
+            inv = invert_blocks(ops.jacobian_blocks(delta))
+            if ell is None:
+                return lambda r: block_apply(inv, r)
+            eq, solve = ell
+
+            def M(r):
+                y = block_apply(inv, r)
+                cols = r[:, eq].reshape(B, -1).t()
+                y[:, eq] = solve(cols).t().reshape(-1).to(y.dtype)
+                return y
+
+            return M
+
+        return build
+
+    def step(self, u_guess, u_old, u_old1, aux: Dict, params: StepParams,
+             active: Optional[np.ndarray] = None):
+        """One attempted nonlinear solve of every member from
+        delta = u_guess - u_old ([B, n_dofs, n_eq], float64), at per-member
+        StepParams of [B] arrays, by `newton_krylov_batched`; members
+        outside `active` do not iterate. Returns (u_new, NewtonInfo of [B]
+        arrays)."""
+        shape = tuple(u_old.shape)
+        flat = (shape[0] * shape[1], shape[2])
+        ops = self.operators(u_old, u_old1, params, aux=aux)
+
+        last = [None, -1, None]
+
+        def view(d):
+            # one view per iterate, so the operators' tangent cache (keyed
+            # on the tensor) serves J v and the node blocks alike
+            if last[0] is not d or last[1] != d._version:
+                last[:] = [d, d._version, d.reshape(flat)]
+            return last[2]
+
+        def stacked(fn):
+            return lambda d: fn(view(d)).reshape(shape)
+
+        R_hi = None
+        if self.inner._hi_enabled():
+            R_hi = stacked(self.operators(u_old, u_old1, params,
+                                          torch.float64, aux).residual)
+        pb = self.block_precond_builder(ops)
+        delta = (u_guess - u_old).to(self.dtype)
+        delta, info = newton_krylov_batched(
+            stacked(ops.residual),
+            lambda d: stacked(ops.jacobian_action(view(d))),
+            delta, self.newton, lambda d: stacked(pb(view(d))),
+            residual_hi=R_hi, active=active)
+        return u_old + delta.to(u_old.dtype), info

@@ -1,3 +1,4 @@
 from .dd import DistributedSystem, distribute
+from .sweep import BatchedSweep, SweepState
 
-__all__ = ["DistributedSystem", "distribute"]
+__all__ = ["BatchedSweep", "DistributedSystem", "SweepState", "distribute"]

@@ -10,8 +10,8 @@ hold it. Part-local dof numbering:
 
   [0, n_own_max)                     owned dofs (padded with phantoms)
   [n_own_max, n_own_max+n_ghost_max) ghost dofs (sorted by global id)
-  n_ext-1                            trash row (padded elements scatter
-                                     here; reads return 0)
+  n_ext-1                            trash row (padded elements gather
+                                     0 here, and have no scatter slot)
 
 The distributed state is ``u_dist[N*n_own_max, n_eq]``: row
 ``p*n_own_max + s`` is owned slot ``s`` of part ``p``, exactly the JAX
@@ -207,8 +207,10 @@ class DistributedSystem:
                     # the stacked numbering: part p's rows from p*n_ext
                     a = a + (row_part * self.n_ext)[:, None].astype(np.int32)
                 arrays[f] = a
+            # padded elements scatter into the trash rows, which nothing
+            # reads: they get no slot (a facet batch pads most parts)
             self._batches.append(
-                (batch.local_view(arrays, N * self.n_ext), kernel))
+                (batch.local_view(arrays, N * self.n_ext, dead=pad), kernel))
 
         # -- halo-exchange tables ---------------------------------------------
         shared: Dict[tuple, np.ndarray] = {}

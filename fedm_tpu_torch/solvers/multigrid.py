@@ -7,9 +7,15 @@ A level on a tensor-product grid (given in `line_grids` or detected)
 applies its operator as the extracted 9-point stencil (`StencilOp`), and
 two such canonical levels transfer by the separable `StructuredTransfer`;
 other levels apply the assembled operator and transfer by P1
-gather/segment sums. The levels' own cell batches assemble by segment sum
-(`index_add_`), as the JAX package's levels do: its ELL layout (K1) is
-switched on for the system's batches only.
+gather/segment sums. The levels' segment sums (their assembly, and the P1
+restriction) go through K1's dense form (`ell_scatter`) over ELL tables
+built once per level: each row adds its terms in element order, so the
+sums are the same from run to run on the card, where `index_add_` adds
+with atomics in an order that varies. The JAX package's levels use
+`segment_sum`.
+
+Every operator of a level, the V-cycle included, takes trailing
+dimensions as independent right-hand sides (a batched sweep's members).
 """
 
 from __future__ import annotations
@@ -19,10 +25,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..fem.assembly import CellBatch
+from ..fem.assembly import CellBatch, build_ell_index
 from ..fem.interpolation import (StructuredTransfer, p1_transfer, prolong,
-                                 restrict)
+                                 restrict, restrict_table)
 from ..fem.space import FunctionSpace
+from ..ops.ell_scatter import ell_scatter
 from .chebyshev import chebyshev_solver, power_iteration_lmax
 from .linesmoother import ZLineSmoother, tridiag_solve_pcr
 from .stencil import StencilOp, canonical_node_grid
@@ -39,18 +46,21 @@ class _Level:
         self.batch = batch
         self.mask = mask
         self.n = space.n_dofs
+        # the segment sum's ELL table [n, max_val] over the flat
+        # [n_cells * 3] contributions
+        self._ell = torch.as_tensor(build_ell_index(batch.dofs_np, self.n),
+                                    device=mask.device)
         g2 = torch.sum(batch.grads * batch.grads, dim=-1)  # [c, 1, 3]
         contrib = batch.scale.sum(dim=1)[:, None] * g2[:, 0]
         diag = self.segment_sum(contrib)
         self.dtilde = torch.where(mask | (diag == 0), 1.0, diag)
 
     def segment_sum(self, contrib: torch.Tensor) -> torch.Tensor:
-        """[n_cells, 3, ...] -> [n_dofs, ...], summed in element order."""
+        """[n_cells, 3, ...] -> [n_dofs, ...], summed in element order
+        (K1's dense form; trailing dims are its C)."""
         trailing = tuple(contrib.shape[2:])
-        out = torch.zeros((self.n,) + trailing, dtype=contrib.dtype,
-                          device=contrib.device)
-        return out.index_add_(0, self.batch.dofs.reshape(-1),
-                              contrib.reshape((-1,) + trailing))
+        return ell_scatter(contrib.reshape((-1,) + trailing).contiguous(),
+                           self._ell)
 
     def A(self, x: torch.Tensor) -> torch.Tensor:
         """The masked Laplacian (identity on Dirichlet rows), in the
@@ -64,7 +74,7 @@ class _Level:
         return torch.where(m, x, Ax)
 
     def At(self, x: torch.Tensor) -> torch.Tensor:
-        return self.A(x) / self.dtilde
+        return self.A(x) / _bcast(self.dtilde, x)
 
 
 def _is_canonical(grid) -> bool:
@@ -134,10 +144,11 @@ class GeometricMultigrid:
                         dtype=dtype, device=self.device)
                 except ValueError:
                     st = None
-            self.transfers.append(
-                st if st is not None else
-                p1_transfer(spaces[k + 1], spaces[k], dtype=dtype,
-                            device=self.device))
+            if st is None:
+                idx, w = p1_transfer(spaces[k + 1], spaces[k], dtype=dtype,
+                                     device=self.device)
+                st = (idx, w, restrict_table(idx, spaces[k + 1].n_dofs))
+            self.transfers.append(st)
 
         self.lmax = []
         self.smoothers = []
@@ -155,7 +166,7 @@ class GeometricMultigrid:
                 A = self.ops[k]
 
                 def At(x, A=A, lev=lev):
-                    return A(x) / lev.dtilde
+                    return A(x) / _bcast(lev.dtilde, x)
 
                 lmax = power_iteration_lmax(At, lev.n, iters=power_iters,
                                             device=self.device)
@@ -163,7 +174,8 @@ class GeometricMultigrid:
                                         smooth_degree)
                 self.lmax.append(lmax)
                 self.smoothers.append(
-                    lambda r, cheb=cheb, lev=lev: cheb(r / lev.dtilde))
+                    lambda r, cheb=cheb, lev=lev: cheb(
+                        r / _bcast(lev.dtilde, r)))
 
         # dense inverse on the coarsest level (setup, host float64): A
         # applied to the identity's columns as one batch in the level's type
@@ -199,11 +211,11 @@ class GeometricMultigrid:
         tr = self.transfers[k]
         structured = isinstance(tr, StructuredTransfer)
         r_c = (tr.restrict(res) if structured
-               else restrict(tr[0], tr[1], res, self.levels[k + 1].n))
-        r_c = torch.where(self.levels[k + 1].mask, 0.0, r_c)
+               else restrict(tr[0], tr[1], res, self.levels[k + 1].n, tr[2]))
+        r_c = torch.where(_bcast(self.levels[k + 1].mask, r_c), 0.0, r_c)
         e_c = self._vcycle(k + 1, r_c)
         e_f = tr.prolong(e_c) if structured else prolong(tr[0], tr[1], e_c)
-        z = z + torch.where(lev.mask, 0.0, e_f)
+        z = z + torch.where(_bcast(lev.mask, e_f), 0.0, e_f)
         z = z + smooth(r - A(z))
         return z
 

@@ -27,9 +27,11 @@ import math
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from .linear import _norm, bicgstab, gmres
+from .linear import (_norm, _where_b, bicgstab, bicgstab_batched, finite_b,
+                     gmres, gmres_batched, norm_b)
 
 LINEAR_SOLVERS = ("bicgstab", "gmres")
 
@@ -269,3 +271,160 @@ def newton_krylov(residual: Callable, jacobian_action: Callable,
     (delta, NewtonInfo)."""
     return newton_solve(residual, jacobian_action, delta, config,
                         precond_builder, residual_hi, lazy_rescue=False)
+
+
+# -- batched: B independent solves on a leading member axis ------------------
+
+
+def _direction_batched(jvp: Callable, f: torch.Tensor, M: Callable,
+                       config: NewtonConfig, run: np.ndarray):
+    """`_direction` of each member in `run`: (d [B, ...], linear relative
+    residuals [B] numpy). GMRES runs for the members whose BiCGStab
+    failed, and the rescue for those whose direction needs it; the other
+    members' results stay as they were (what the JAX package's `lax.cond`
+    under `vmap`, a select of both branches, gives each member)."""
+    def op(v):
+        return M(jvp(v))
+
+    rhs = M(-f)
+    kw = dict(tol=config.linear_tol, maxiter=config.linear_maxiter,
+              stall_window=config.linear_stall_window, active=run)
+    if config.linear_solver == "gmres":
+        d, linres, _ = gmres_batched(op, rhs, restart=config.gmres_restart,
+                                     **kw)
+        return d, linres.cpu().numpy()
+    d, linres, _ = bicgstab_batched(op, rhs, **kw)
+    lr = linres.cpu().numpy()
+    d_ok = finite_b(d)
+    need = run & ((lr > config.linear_tol) | ~np.isfinite(lr)
+                  | ~d_ok.cpu().numpy())
+    if config.gmres_fallback and need.any():
+        # a non-finite direction restarts GMRES from zero
+        x0 = _where_b(d_ok, d, torch.zeros_like(d))
+        kw["active"] = need
+        d2, lr2, _ = gmres_batched(op, rhs, x0=x0,
+                                   restart=config.gmres_restart, **kw)
+        d = _where_b(torch.as_tensor(need, device=d.device), d2, d)
+        lr = np.where(need, lr2.cpu().numpy(), lr)
+    if config.true_res_rescue > 0:
+        d = _true_res_rescue_batched(jvp, f, M, d, config, run)
+    return d, lr
+
+
+def _true_res_rescue_batched(jvp, f, M, d, config: NewtonConfig,
+                             run: np.ndarray) -> torch.Tensor:
+    """`_true_res_rescue` of each member in `run`."""
+    f_n = norm_b(f)
+    lt0 = (norm_b(f + jvp(d)) / f_n).cpu().numpy()
+    need = run & ~(np.isfinite(lt0) & (lt0 <= config.true_res_rescue))
+    if not need.any():
+        return d
+    y, _, _ = gmres_batched(lambda v: jvp(M(v)), -f, tol=config.linear_tol,
+                            maxiter=config.linear_maxiter,
+                            restart=config.gmres_restart,
+                            stall_window=config.linear_stall_window,
+                            active=need)
+    d2 = M(y)
+    d2_ok = finite_b(d2)
+    d2 = _where_b(d2_ok, d2, torch.zeros_like(d2))
+    lt2 = torch.where(d2_ok, norm_b(f + jvp(d2)) / f_n,
+                      torch.inf).cpu().numpy()
+    keep2 = need & ((lt2 < lt0) | ~np.isfinite(lt0))
+    return _where_b(torch.as_tensor(keep2, device=d.device), d2, d)
+
+
+def newton_iteration_batched(residual: Callable, jacobian_action: Callable,
+                             u: torch.Tensor, fnorm: np.ndarray,
+                             config: NewtonConfig, precond_builder: Callable,
+                             residual_hi: Optional[Callable] = None,
+                             run: Optional[np.ndarray] = None):
+    """`newton_iteration` of each member in `run` ([B] bool), each with its
+    own line search. Returns (u_new, fnorm_new, linres, improved, step_ok),
+    the last four [B] numpy; members outside `run` keep their iterate."""
+    B = u.shape[0]
+    run = np.ones(B, bool) if run is None else run
+    dev = u.device
+
+    def col(a):
+        return torch.as_tensor(a, device=dev).reshape(
+            (-1,) + (1,) * (u.dim() - 1)).to(u.dtype)
+
+    jvp = jacobian_action(u)
+    f = (residual_hi(u).to(u.dtype) if residual_hi is not None
+         else residual(u))
+    res_ls = residual if residual_hi is None else residual_hi
+    M = precond_builder(u)
+    delta, linres = _direction_batched(jvp, f, M, config, run)
+    if config.delta_clip:
+        lim = torch.as_tensor(config.delta_clip, dtype=delta.dtype,
+                              device=dev)
+        delta = torch.clamp(delta, -lim, lim)
+
+    # per-member backtracking line search, the full step probed first
+    lam, h = np.ones(B), np.zeros(B, int)
+    fnew = norm_b(res_ls(u + col(lam) * delta)).cpu().numpy()
+
+    def searching():
+        return run & ~(fnew <= (1.0 - config.armijo * lam) * fnorm) \
+            & (h < config.max_halvings)
+
+    ls = searching()
+    while ls.any():
+        lam = np.where(ls, lam * 0.5, lam)
+        fn = norm_b(res_ls(u + col(lam) * delta)).cpu().numpy()
+        fnew = np.where(ls, fn, fnew)
+        h = h + ls
+        ls = searching()
+    improved = run & np.isfinite(fnew) & (fnew < fnorm)
+    imp = torch.as_tensor(improved, device=dev)
+    u_new = _where_b(imp, u + col(lam) * delta, u)
+    fnorm_new = np.where(improved, fnew, fnorm)
+    step_ok = np.zeros(B, bool)
+    if config.stol > 0:
+        small = (norm_b(delta) <= config.stol * norm_b(u_new)).cpu().numpy()
+        step_ok = improved & (lam >= 1.0) & small
+    return u_new, fnorm_new, linres, improved, step_ok
+
+
+def newton_krylov_batched(residual: Callable, jacobian_action: Callable,
+                          delta: torch.Tensor, config: NewtonConfig,
+                          precond_builder: Callable,
+                          residual_hi: Optional[Callable] = None,
+                          active: Optional[np.ndarray] = None):
+    """`newton_krylov` of B independent systems on delta [B, ...]: each
+    member has its own target, counters and verdict, iterates until it
+    stops, and is not touched after. Members outside `active` do not
+    iterate. Returns (delta, NewtonInfo of [B] numpy arrays)."""
+    B = delta.shape[0]
+    act = np.ones(B, bool) if active is None else np.asarray(active, bool)
+    res0 = residual if residual_hi is None else residual_hi
+    f0 = norm_b(res0(delta)).cpu().numpy()
+    target = np.maximum(config.rtol * f0, config.atol)
+    fnorm, linres = f0.copy(), np.full(B, np.inf)
+    k = np.zeros(B, int)
+    step_ok = np.zeros(B, bool)
+    stalls = np.where(np.isfinite(f0), 0, 99)
+
+    def running():
+        return (act & (fnorm > target) & (k < config.max_iter)
+                & (stalls < config.max_stalls) & np.isfinite(fnorm)
+                & ~step_ok)
+
+    run = running()
+    while run.any():
+        delta, fn, lr, improved, ok = newton_iteration_batched(
+            residual, jacobian_action, delta, fnorm, config, precond_builder,
+            residual_hi, run)
+        fnorm = np.where(run, fn, fnorm)
+        linres = np.where(run, lr, linres)
+        step_ok = np.where(run, ok, step_ok)
+        stalls = np.where(run, np.where(improved, 0, stalls + 1), stalls)
+        k = k + run
+        run = running()
+    capped = k >= config.max_iter
+    converged = np.array([newton_converged(
+        fnorm[b], f0[b], target[b], stalls[b], config, capped[b],
+        step_ok[b]) for b in range(B)])
+    strict = np.isfinite(fnorm) & ((fnorm <= target) | step_ok)
+    return delta, NewtonInfo(converged, k, fnorm, f0, linres,
+                             converged & ~strict)

@@ -35,13 +35,14 @@ def canonical_node_grid(space):
 
 
 def stencil_matvec(S: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """9-point stencil matvec in grid layout: X, result [n_i, n_j]."""
-    n_i, n_j = X.shape
+    """9-point stencil matvec in grid layout: X, result [..., n_i, n_j]
+    (leading dims are independent right-hand sides)."""
+    n_i, n_j = X.shape[-2:]
     P = F.pad(X, (1, 1, 1, 1))
     out = torch.zeros_like(X)
     for di in (-1, 0, 1):
         for dj in (-1, 0, 1):
-            out = out + S[di + 1, dj + 1] * P[1 + di:1 + di + n_i,
+            out = out + S[di + 1, dj + 1] * P[..., 1 + di:1 + di + n_i,
                                               1 + dj:1 + dj + n_j]
     return out
 
@@ -145,8 +146,17 @@ class StencilOp:
         return stencil_matvec(self._S, X)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """Stencil matvec on flat [n_dofs] vectors."""
-        return self.to_flat(self.apply_grid(self.to_grid(x)))
+        """Stencil matvec on flat [n_dofs] vectors, or on [n_dofs, ...]
+        with trailing dims as independent right-hand sides (canonical
+        layout only): one matvec over all of them."""
+        if x.dim() == 1:
+            return self.to_flat(self.apply_grid(self.to_grid(x)))
+        if not self._reshape_ok:
+            raise NotImplementedError("trailing right-hand sides need the "
+                                      "canonical node layout")
+        X = x.reshape(self.n_j, self.n_i, -1).permute(2, 1, 0)
+        Y = self.apply_grid(X)                       # [b, n_i, n_j]
+        return Y.permute(2, 1, 0).reshape(x.shape)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(x)

@@ -44,11 +44,12 @@ from ..model.system import CoupledSystem, StepParams
 from .controllers import adaptive_timestep
 
 
-def step_error_norm(var_new: torch.Tensor,
-                    var_old: torch.Tensor) -> torch.Tensor:
-    """Relative l2 step error with the reference's DOLFIN_EPS shift."""
-    num = torch.linalg.vector_norm(var_new - var_old + DOLFIN_EPS)
-    return num / torch.linalg.vector_norm(var_old + DOLFIN_EPS)
+def step_error_norm(var_new: torch.Tensor, var_old: torch.Tensor,
+                    dim=None) -> torch.Tensor:
+    """Relative l2 step error with the reference's DOLFIN_EPS shift; with
+    `dim`, one per member of a batch (the norms reduce over `dim` only)."""
+    num = torch.linalg.vector_norm(var_new - var_old + DOLFIN_EPS, dim=dim)
+    return num / torch.linalg.vector_norm(var_old + DOLFIN_EPS, dim=dim)
 
 
 @dataclass

@@ -122,7 +122,9 @@ def _layout_equal(jd, d):
     # package's per-part arrays, each part's dofs offset by p * n_ext
     i = 0
     assert len(d._batches) == len(jd._batch_meta)
-    for (tb, _), (tmpl, _, n_arr) in zip(d._batches, jd._batch_meta):
+    src = list(d.inner._batches())
+    for k, ((tb, _), (tmpl, _, n_arr)) in enumerate(zip(d._batches,
+                                                        jd._batch_meta)):
         fields = type(tmpl)._SHARD_FIELDS
         assert fields == tb._SHARD_FIELDS
         for f, ref in zip(fields, jd._batch_arrays[i:i + n_arr]):
@@ -135,7 +137,13 @@ def _layout_equal(jd, d):
                 np.testing.assert_array_equal(getattr(tb, f).numpy(), ref)
         i += n_arr
         assert tuple(tb.gather_idx.shape)[0] == N * d.n_ext
-        assert tb.scatter_rows is None and tb._structured is None
+        assert tb._structured is None
+        # every batch scatters over its live rows (the trash rows never
+        # are), and its padded elements have no slot
+        assert tb.scatter_rows is not None
+        n_real = src[k][0].dofs.numel()
+        assert int((tb.gather_idx < tb.dofs.numel()).sum()) == n_real
+        assert int((tb.scatter_idx < tb.dofs.numel()).sum()) == n_real
 
 
 def test_layout_streamer_8_parts(streamer):

@@ -575,3 +575,105 @@ def test_empty_kernel_launches_at_every_width(cuda, max_val, C):
 
     ell_noop(4696, max_val, C)
     torch.cuda.synchronize()
+
+
+# -- deterministic segment sums; the batched sweep ----------------------------
+
+
+def test_vcycle_is_bitwise_deterministic(cuda, tmp_path):
+    """The glow's Poisson V-cycle (unstructured levels summed by K1's dense
+    form, P1 restriction through its transposed table) applied twice to
+    one vector gives the same bits, and matches the CPU's V-cycle."""
+    from fedm_tpu_torch.models.argon_synth import generate_argon_input
+
+    generate_argon_input(tmp_path)
+    cpu, gpu = _glow_model("cpu", tmp_path), _glow_model(cuda, tmp_path)
+    solve_c, solve_g = cpu.system._ell[1], gpu.system._ell[1]
+    n = cpu.space.n_dofs
+    r = torch.as_tensor(np.random.default_rng(3).standard_normal(n),
+                        dtype=cpu.batch.dtype)
+    launches = launch_count("ell_scatter")
+    a, b = solve_g(r.to(cuda)), solve_g(r.to(cuda))
+    assert launch_count("ell_scatter") > launches
+    assert torch.equal(a, b)
+    ref = solve_c(r)
+    assert float((a.cpu() - ref).abs().max()) <= 1e-5 * float(
+        ref.abs().max())
+
+
+def _small_sweep(device, amps=(2e18, 5e18, 1e19)):
+    from fedm_tpu_torch.parallel import BatchedSweep
+
+    cfg = StreamerConfig(nx=10, ny=14)
+    model = StreamerModel(cfg, device=device)
+    sweep = BatchedSweep(model.system, monitor_idx=1, ttol=cfg.ttol,
+                         dt_min=cfg.dt_min, dt_max=cfg.dt_max)
+    states = [StreamerModel(StreamerConfig(nx=10, ny=14, seed_amplitude=a),
+                            device=device).initial_state() for a in amps]
+    return model, sweep, sweep.from_states(states)
+
+
+def test_deterministic_mode_glow_advance_and_sweep_attempt(cuda, tmp_path):
+    """One glow advance and one sweep attempt under
+    `torch.use_deterministic_algorithms(True)` (no warn_only): every op on
+    those paths has a deterministic CUDA form, or this raises. Each run
+    twice gives the same bits."""
+    from fedm_tpu_torch.models.argon_synth import generate_argon_input
+
+    generate_argon_input(tmp_path)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        m = _glow_model(cuda, tmp_path)
+        s = m.initial_state()
+        d = m.make_driver()
+        a = d.advance(s, m._update_aux(s.u))
+        b = m.make_driver().advance(s, m._update_aux(s.u))
+        assert torch.equal(a.u, b.u) and a.dt == b.dt
+        _, sweep, st = _small_sweep(cuda)
+        x, y = sweep.attempt(st, {}), sweep.attempt(st, {})
+        assert (x.n_accepted == 1).all()
+        assert torch.equal(x.u, y.u) and (x.max_error == y.max_error).all()
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def test_sweep_attempt_on_cuda_matches_the_cpu(cuda):
+    """One attempt of the batched sweep (3 members) on the card against the
+    same on the CPU: the same counts, dt and step errors to 1e-10, the
+    states to 1e-10 of each column's max."""
+    _, sw_c, st_c = _small_sweep("cpu")
+    _, sw_g, st_g = _small_sweep(cuda)
+    a, b = sw_c.attempt(st_c, {}), sw_g.attempt(st_g, {})
+    assert (a.n_accepted == b.n_accepted).all()
+    np.testing.assert_allclose(b.dt, a.dt, rtol=1e-10)
+    np.testing.assert_allclose(b.max_error, a.max_error, rtol=1e-10)
+    scale = a.u.abs().amax(dim=1, keepdim=True)
+    assert float(((b.u.cpu() - a.u).abs() / scale).max()) <= 1e-10
+
+
+def test_k1_launches_per_batched_krylov_iteration_do_not_grow_with_b(cuda):
+    """One BiCGStab iteration's operator and preconditioner applications
+    (2 J v, 2 M) launch K1 as often for 1 member as for 4."""
+    from fedm_tpu_torch.model.system import BatchedSystem
+    from fedm_tpu_torch.ops.ell_scatter import LAUNCHES
+
+    model = StreamerModel(StreamerConfig(nx=10, ny=14), device=cuda)
+    s = model.initial_state()
+    counts = []
+    for B in (1, 4):
+        bs = BatchedSystem(model.system, B)
+        u = s.u.expand(B, -1, -1).contiguous()
+        p = StepParams(*(np.full(B, x) for x in (s.dt, s.dt, s.dt_old)))
+        ops = bs.operators(u, u, p)
+        delta = torch.zeros((B * s.u.shape[0], 3), dtype=torch.float64,
+                            device=cuda)
+        J, M = ops.jacobian_action(delta), bs.block_precond_builder(ops)(
+            delta)
+        v = torch.ones_like(delta)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        for _ in range(2):
+            v = M(J(v))
+        counts.append(launch_count())
+    assert counts[0] == counts[1] > 0

@@ -60,7 +60,11 @@ def test_port_source_list_is_complete():
             "fedm_tpu_torch/mesh/reorder.py",
             "fedm_tpu_torch/mesh/io_xml.py",
             "fedm_tpu_torch/parallel/dd.py",
-            "fedm_tpu_torch/examples/extended_scheme.py"} <= names
+            "fedm_tpu_torch/examples/extended_scheme.py",
+            "fedm_tpu_torch/parallel/sweep.py",
+            "fedm_tpu_torch/examples/streamer.py",
+            "fedm_tpu_torch/examples/glow_discharge.py",
+            "fedm_tpu_torch/dd_scale.py"} <= names
 
 
 def test_native_source_is_the_ports_own_copy():
@@ -77,13 +81,23 @@ def test_native_source_is_the_ports_own_copy():
                                    PlasmaModel.__init__,
                                    TimeOfFlight1D.__init__,
                                    TimeOfFlight2D.__init__,
-                                   convert.field_from_array])
+                                   convert.field_from_array,
+                                   convert.sweep_state_from_arrays])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
 def test_extended_scheme_defaults_to_cuda():
     assert extended_scheme.parse_args([]).device == "cuda"
+
+
+@pytest.mark.parametrize("module", ["examples.streamer",
+                                    "examples.glow_discharge", "dd_scale"])
+def test_this_slices_entry_points_default_to_cuda(module):
+    import importlib
+
+    mod = importlib.import_module(f"fedm_tpu_torch.{module}")
+    assert mod.parse_args([]).device == "cuda"
 
 
 @pytest.mark.parametrize("cls", ["PlasmaModel", "StreamerModel",

@@ -34,7 +34,11 @@ gives its gaps, its counts, and the controls the tolerances must refuse
 options: M r of the float32 model).
 
     JAX_PLATFORMS=cpu python tools/port_reference_options.py \
-        [--part rescue|options|both] [--port]
+        [--part rescue|options|both] [--port] [--only OPTION]
+        [--spread-seeds N]
+
+(`--only row_scaled_f32 --spread-seeds 24` gives the wider float32 spread
+that `chip_smoke.py` holds the row-scaled counts to.)
 """
 
 import argparse
@@ -245,9 +249,11 @@ def port_rescue(ref: dict) -> dict:
 
 # -- options -----------------------------------------------------------------
 
-def jax_options(tree: Path) -> dict:
+def jax_options(tree: Path, only=None, seeds: int = 6) -> dict:
     out = {"precond": {}, "advance": {}}
     for name, kw in OPTIONS.items():
+        if only is not None and name != only:
+            continue
         dtype = {"dtype": jnp.float32} if name.endswith("f32") else {}
         m = StreamerModel.from_file_input(tree, **kw, **dtype)
         if name == "mg":
@@ -280,7 +286,7 @@ def jax_options(tree: Path) -> dict:
         out["advance"][name] = rec
         print(f"# options {name}: {rec}", file=sys.stderr, flush=True)
         out.setdefault("spread", {})[name] = jax_spread(
-            m, s, 1e-7 if name.endswith("f32") else 1e-12, rec)
+            m, s, 1e-7 if name.endswith("f32") else 1e-12, rec, seeds)
         print(f"# spread {name}: {out['spread'][name]}", file=sys.stderr,
               flush=True)
     return out
@@ -379,6 +385,10 @@ def main():
                     default="both")
     ap.add_argument("--port", action="store_true",
                     help="also run the port on the CPU and print its gaps")
+    ap.add_argument("--only", choices=list(OPTIONS), default=None,
+                    help="the options part for this option alone")
+    ap.add_argument("--spread-seeds", type=int, default=6,
+                    help="seeded perturbations of each spread")
     opts = ap.parse_args()
     # the JAX package's Newton and Krylov iterations, counted by host
     # callbacks (as tools/port_reference_window.py counts them)
@@ -395,7 +405,7 @@ def main():
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             tree = write_tree(Path(tmp))
-            ref = jax_options(tree)
+            ref = jax_options(tree, opts.only, opts.spread_seeds)
             print(json.dumps({"options": ref}), flush=True)
             if opts.port:
                 print(json.dumps({"options_port": port_options(tree, ref)}),
