@@ -1,14 +1,17 @@
-"""Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
-kernels, holds each against its plain PyTorch version, and drives the port's
-paths at full size: the Bagheri streamer restart that `bench.py` times, the
-streamer from t = 0 on its moving window with the direct rescue, the argon
-glow, the streamer's option paths, the time-of-flight verification runs
-(1D P2 and 2D axisymmetric) with their entry point, the extended
-reaction scheme under the DOF-partitioned domain decomposition with its
-entry point, the batched parameter sweep, the streamer example and the
-domain decomposition at scale.
+"""Smoke test of the PyTorch/CUDA port on one GPU, and on several: builds
+the hand-written kernels, holds each against its plain PyTorch version,
+and drives the port's paths at full size: the Bagheri streamer restart
+that `bench.py` times, the streamer from t = 0 on its moving window with
+the direct rescue, the argon glow, the streamer's option paths, the
+time-of-flight verification runs (1D P2 and 2D axisymmetric) with their
+entry point, the extended reaction scheme under the DOF-partitioned
+domain decomposition with its entry point, the batched parameter sweep,
+the streamer example and the domain decomposition at scale; where the
+machine has two cards or more, the domain decomposition and the sweep on
+distinct cards, one rank (process) each.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase; one card needed
+    python3 chip_smoke.py --only cards   # phases 0, 1 and 11 alone
 
 Phases (each reports its elapsed seconds on stderr):
   0. device: a CUDA device must be present, else exit 1 with no result;
@@ -33,9 +36,9 @@ Phases (each reports its elapsed seconds on stderr):
      (tools/port_reference_window.py), the window moved and the remapped
      state and its residual held to them too, K1 inside the moved
      residual against its plain version (exactly), then 10 adaptive
-     advances with K1's launch counter reset just before and read just
-     after; the third runs BiCGStab to its cap and then the GMRES
-     fallback, which must run;
+     advances (4 on a slower host: N_LEAST_ADVANCES) with K1's launch
+     counter reset just before and read just after; the third runs
+     BiCGStab to its cap and then the GMRES fallback, which must run;
   5. the glow: the argon glow discharge at the `glow50` protocol of
      `python -m fedm_tpu_torch.glow_run` (crossed 64 x 64 mesh, 8,321
      dofs, 41,605 unknowns, the synthetic argon tree generated into a
@@ -44,9 +47,10 @@ Phases (each reports its elapsed seconds on stderr):
      float64 residual, each held to the JAX package's numbers
      (tools/port_reference_glow.py), each residual tolerance shown to
      refuse the residual evaluated in float32; K1 inside the probe
-     residual against the plain scatter; then 10 adaptive advances with
-     K1's launch counter reset just before and read just after, which must
-     show launches of K1's dense form (the unstructured cell scatter);
+     residual against the plain scatter; then 10 adaptive advances (4 on
+     a slower host), each of which must land, with K1's launch counter
+     reset just before and read just after, which must show launches of
+     K1's dense form (the unstructured cell scatter);
   4b. rescue: the host sparse-direct Newton on phase 4's moved state (the
      window phase runs the preset as written, with this rescue as its
      fallback): the colour and node-pair counts of the JAX package, the
@@ -95,7 +99,8 @@ Phases (each reports its elapsed seconds on stderr):
      `masked_stiffness_op`; one step from the initial state, both ways,
      with the JAX package's Newton and BiCGStab counts, the states within
      1e-6 relative, K1's launches by shape counted around the distributed
-     step; the entry point with `--devices 8 --steps 1` as a process;
+     step; the entry point with `--devices 8 --steps 1` as a process
+     (through a one-rank group, `--cards 1`: no collective runs);
      the streamer's DD at the default StreamerConfig (39,123 unknowns, 8
      parts): residual and node blocks against the undistributed system,
      one step with `enable_distributed_elliptic` against the
@@ -120,10 +125,32 @@ Phases (each reports its elapsed seconds on stderr):
      (tools/port_reference_streamer_example.py);
   10. dd_scale: `python -m fedm_tpu_torch.dd_scale` as a process at its
      defaults (280 x 560, 472,923 unknowns, 8 parts stacked on the card,
-     2 steps, then the same steps undistributed): the size and the
-     partition (20,196 own + 562 ghost rows a part), the Newton
-     iterations and the step errors held to
-     bench_assets/dd_scale_r03.log, the step times recorded both ways.
+     2 steps, then the same steps undistributed; a one-rank group):
+     the size and the partition (20,196 own + 562 ghost rows a part), the
+     Newton iterations and the step errors held to
+     bench_assets/dd_scale_r03.log, the step times recorded both ways;
+  11. cards (with two cards or more; on one, stderr says
+     `11 cards: not run, 1 device` and the results line has
+     "cards": null): R = 4 ranks (2 on a two-card machine), one per card
+     (`fedm_tpu_torch.parallel.ranks`, NCCL), in one launch: the extended
+     scheme's 8 parts, 8/R a card: residual and node blocks against the
+     stacked one-card values (bit for bit where the cells' gradient einsum
+     rounds a row alike at a rank's and the stacked cell counts, which a
+     probe of it at the model's shapes decides; where it does not, within
+     phase 8's tolerance, the gap recorded: cuBLAS picks that batched
+     GEMM's kernel by the batch count, the first of the element kernel's
+     einsums that fedm_tpu_torch.parallel.rank_probe finds rounding by
+     the rank's rows), one step with the one-card
+     Newton count and BiCGStab's equal to it or inside JAX's spread, the
+     state within 1e-6 of the undistributed step, both refusing the
+     control without the cross-rank reverse exchange, K1 launched on
+     every card and held to its plain version on card 1; the streamer's
+     DD (8 parts) with the distributed elliptic preconditioner, one step
+     against the undistributed one; the sweep's 8 members, 8/R a card, 3
+     attempts: counts equal to one card's, t, dt and the states within
+     1e-12, held to the JAX numbers; then `dd_scale --cards
+     R` as a process beside the one-card run; every card's name and
+     power limit.
 The glow phase (5) also checks that two V-cycles of one vector, and two
 advances from one state, give the same bits (the unstructured levels
 and the restriction sum through K1's dense form, F3); the options phase
@@ -219,6 +246,21 @@ WINDOW_MOVED_RESIDUAL_RTOL = (5e-11, 2e-8, 5e-5)
 # (PERF.md, sec. 6), and the only place where the card runs the GMRES
 # fallback
 N_WINDOW_ADVANCES = 10
+# The depth of the window, the glow and the sweep's profile follows the
+# host. The host's pace is read once, where the window's first
+# N_LEAST_ADVANCES advances end (the third, the GMRES one, is among
+# them): by FULL_DEPTH_PACE_S there, the window and the glow take all
+# their advances and the sweep profiles SWEEP_PROFILED_ITERS iterations;
+# later, N_LEAST_ADVANCES advances each and SWEEP_PROFILED_ITERS_LEAST.
+# My chip runs of PR 12 (one H100, 700 W): hosts that reached that point
+# at 129.9-148.1 s ran the whole script in 441.9-493.6 s at 6 advances
+# (~490-545 s at full depth); hosts at 175.7-215.6 s took 503.5-551.1 s at
+# 4-6 advances and ran past the 600 s budget at full depth (runs 1 and
+# 21: the sweep reached at 367 and 429 s). The results line says which
+# (`"depth"`).
+N_LEAST_ADVANCES = 4
+FULL_DEPTH_PACE_S = 160
+_depth = {"full": True}
 # The glow's reference numbers, computed with the JAX package on the CPU by:
 #   JAX_PLATFORMS=cpu python tools/port_reference_glow.py
 # (per-column 2-norms of the state u = [ln w_e, ln n_Ar*, ln n_Ar+, ln n_e,
@@ -512,7 +554,7 @@ SWEEP_B = 8
 SWEEP_AMPS = tuple(float(a) for a in np.geomspace(1e18, 2e19, SWEEP_B))
 SWEEP_ATTEMPTS = 3
 SWEEP_HORIZON = 2e-11
-SWEEP_PROFILED_ITERS = 20
+SWEEP_PROFILED_ITERS, SWEEP_PROFILED_ITERS_LEAST = 20, 5
 REF_SWEEP = {
     "initial": [[3470.6365421583196, 3418.3339510248147,
         1457347.647546141], [3474.597419825185, 3418.3339510248147,
@@ -662,6 +704,16 @@ REF_STREAMER_EXAMPLE = {
 # the step errors to 1e-11 relative (CPU gap 3.6e-15; the options phase's
 # float64 step errors sit 1.0e-13 from JAX's on the H100)
 STREAMER_EXAMPLE_RTOL = 1e-11
+# Phase 11: R ranks, one per card (4 where the machine has 4 cards, else
+# 2), each holding EXT_PARTS / R parts of the domain decomposition and
+# SWEEP_B / R members of the sweep; the time limit of its one launch
+CARDS_LAUNCH_S = 420
+CARDS_BUDGET_S = 600       # phase 11's own budget after the other phases
+CARDS_STATE_RTOL = 1e-12   # the sweep's states on R cards vs one card
+# and its t and dt: equal on the CPU (gloo); on the cards the members'
+# kernels run on fewer rows, and the cells' gradient einsum (a batched
+# GEMM) rounds by its batch count where cuBLAS picks another kernel for it
+CARDS_TIME_RTOL = 1e-12
 T0 = time.perf_counter()
 _phase = "start"
 
@@ -978,7 +1030,17 @@ def fresh_window(k1, card) -> dict:
         k1.LAUNCHES.clear()
         step_s, per_advance = [], []
         with mock.patch.multiple(newton, **patches):
-            for _ in range(N_WINDOW_ADVANCES):
+            for k in range(N_WINDOW_ADVANCES):
+                if k == N_LEAST_ADVANCES:
+                    _depth.update(full=time.perf_counter() - T0
+                                  < FULL_DEPTH_PACE_S, pace_s=round(
+                                      time.perf_counter() - T0, 1))
+                    if not _depth["full"]:
+                        log(f"a slower host: {_depth['pace_s']} s at the "
+                            f"window's advance {k}, past "
+                            f"{FULL_DEPTH_PACE_S} s; the window and the "
+                            f"glow take {N_LEAST_ADVANCES} advances")
+                        break
                 before = dict(counts)
                 t = time.perf_counter()
                 state = driver.advance(state, {})
@@ -1002,7 +1064,7 @@ def fresh_window(k1, card) -> dict:
                     driver.fallback_system.n_factorizations,
                 "launches": launches,
                 "k1_launches_per_advance":
-                    launches["ell_scatter_add_"] / N_WINDOW_ADVANCES,
+                    launches["ell_scatter_add_"] / len(step_s),
                 "t": state.t, "card": card})
     check(all(bool(torch.isfinite(x).all())
               for x in (state.u, state.u_old, state.u_old1)),
@@ -1501,8 +1563,9 @@ def glow(k1, card) -> dict:
                    for name in ("newton_iteration", "bicgstab", "gmres")}
         k1.LAUNCHES.clear()
         step_s, per_advance = [], []
+        n_glow = N_GLOW_ADVANCES if _depth["full"] else N_LEAST_ADVANCES
         with mock.patch.multiple(newton, **patches):
-            for _ in range(N_GLOW_ADVANCES):
+            for _ in range(n_glow):
                 before = dict(counts)
                 t = time.perf_counter()
                 state.dt = min(state.dt, max(args.T - state.t,
@@ -1535,12 +1598,12 @@ def glow(k1, card) -> dict:
                 "accepted": state.n_accepted, "attempts": attempts,
                 "launches": launches, "launches_by_shape": shapes,
                 "k1_launches_per_advance_by_shape":
-                    {k: v / N_GLOW_ADVANCES for k, v in shapes.items()},
+                    {k: v / n_glow for k, v in shapes.items()},
                 "t": state.t, "card": card})
     check(all(bool(torch.isfinite(x).all())
               for x in (state.u, state.u_old, state.u_old1)),
           "non-finite glow state")
-    check(state.n_accepted == N_GLOW_ADVANCES and state.t > 0,
+    check(state.n_accepted == n_glow and state.t > 0,
           "the glow advances did not all land")
     check(dense > 0 and shapes.get("dense C=5 f32", 0) > 0,
           "the glow never launched K1's dense form on its cell scatter")
@@ -2347,8 +2410,9 @@ def sweep(k1, card) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            _, _, its = bicgstab_batched(op, rhs, tol=1e-30,
-                                         maxiter=SWEEP_PROFILED_ITERS)
+            _, _, its = bicgstab_batched(
+                op, rhs, tol=1e-30, maxiter=SWEEP_PROFILED_ITERS
+                if _depth["full"] else SWEEP_PROFILED_ITERS_LEAST)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         dev = [e for e in prof.events()
@@ -2491,17 +2555,34 @@ def sweep(k1, card) -> dict:
     return out
 
 
-def dd_scale(card) -> dict:
+def _run_group(cmd, timeout: float) -> subprocess.CompletedProcess:
+    """`cmd` in a session of its own, captured; on its time limit, or any
+    exception here, the whole session is killed (the ranks it spawned
+    too)."""
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def dd_scale(card, n_cards: int = 1, timeout: float = None) -> dict:
     """Phase 10: `python -m fedm_tpu_torch.dd_scale` as a process, at its
     defaults (280 x 560, 472,923 unknowns, 8 parts stacked on the card, 2
     steps, then the same steps undistributed), held to
-    bench_assets/dd_scale_r03.log."""
+    bench_assets/dd_scale_r03.log; with `n_cards` > 1 (phase 11) the 8
+    parts on that many cards, one rank each (`--cards`)."""
     t = time.perf_counter()
-    proc = subprocess.run(
+    proc = _run_group(
         [sys.executable, "-m", "fedm_tpu_torch.dd_scale", "--steps",
-         str(len(DD_SCALE_REF["errors"]))],
-        capture_output=True, text=True, cwd=ROOT,
-        timeout=max(60, BUDGET_S - (time.perf_counter() - T0)))
+         str(len(DD_SCALE_REF["errors"])), "--cards", str(n_cards)],
+        max(60, BUDGET_S - (time.perf_counter() - T0)) if timeout is None
+        else timeout)
     wall = time.perf_counter() - t
     check(proc.returncode == 0, f"dd_scale failed: {proc.stderr[-2000:]}")
     text = proc.stdout
@@ -2515,7 +2596,11 @@ def dd_scale(card) -> dict:
     steps = re.findall(r"step \d: ([0-9.]+)s on 8 parts, ([0-9.]+)s "
                        r"undistributed", text)
     k1n = re.search(r"K1 launches: (\d+)", text)
-    out = {"card": card, "process_s": wall,
+    per_rank = collections.defaultdict(list)
+    for rank, _, sec in re.findall(r"rank (\d+) step (\d+): ([0-9.]+) s",
+                                   proc.stderr):
+        per_rank[int(rank)].append(float(sec))
+    out = {"card": card, "cards": n_cards, "process_s": wall,
            "dofs": int(m[1]) if m else None,
            "unknowns": int(m[2]) if m else None,
            "own": int(part[1]) if part else None,
@@ -2523,6 +2608,7 @@ def dd_scale(card) -> dict:
            "newton_iterations": iters, "step_errors": errs,
            "step_s": [float(a) for a, _ in steps],
            "undistributed_step_s": [float(b) for _, b in steps],
+           "rank_step_s": dict(sorted(per_rank.items())),
            "k1_launches": int(k1n[1]) if k1n else 0}
     log(f"dd_scale: {out}")
     check((out["dofs"], out["unknowns"], out["own"], out["ghost"])
@@ -2537,6 +2623,9 @@ def dd_scale(card) -> dict:
         for row in errs), f"dd_scale step errors {errs} off the JAX "
                           f"tool's {DD_SCALE_REF['errors']}")
     check(len(steps) == n, "dd_scale printed no step times")
+    check(sorted(per_rank) == list(range(n_cards))
+          and all(len(v) == n for v in per_rank.values()),
+          f"dd_scale's ranks printed no step times: {dict(per_rank)}")
     check(out["k1_launches"] > 0, "dd_scale never launched K1")
     return out
 
@@ -2578,7 +2667,395 @@ def streamer_example(card) -> dict:
     return out
 
 
+def _smi_lines() -> list:
+    """`nvidia-smi --query-gpu=name,power.limit`: one line per card."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip().splitlines() or ["nvidia-smi gave no answer"]
+
+
+def _rank_rows(results, key) -> torch.Tensor:
+    """The ranks' rows of a distributed array, in rank order."""
+    rows = [r[key] if not isinstance(key, tuple) else r[key[0]][key[1]]
+            for r in results]
+    return torch.cat(rows)
+
+
+def _rank_vs_stacked(name, F, F1, B, B1, rows_probe) -> dict:
+    """The ranks' residual and node blocks against the stacked one-card
+    values: bit for bit where the cells' gradient einsum rounds a row alike
+    at the ranks' and the stacked cell counts (`rows_probe`); where it
+    does not, within phase 8's tolerance of distributed against
+    undistributed, the gap recorded (fedm_tpu_torch.parallel.rank_probe
+    traces the extended scheme's gap to that einsum first, and to the
+    quadrature-value einsum after it)."""
+    out = {"bitwise": [torch.equal(F, F1), torch.equal(B, B1)],
+           "max_abs_diff": [float((F - F1).abs().max()),
+                            float((B - B1).abs().max())],
+           "max_abs": [float(F1.abs().max()), float(B1.abs().max())],
+           "rows_round_alike": rows_probe["equal"],
+           "residual": _close(f"{name}: residual", F, F1, EXT_OPS_RTOL,
+                              atol_rel=EXT_OPS_ATOL_REL),
+           "blocks": _close(f"{name}: node blocks", B, B1, EXT_OPS_RTOL,
+                            atol_rel=EXT_OPS_ATOL_REL)}
+    log(f"cards: {name}: {out}")
+    check(all(out["bitwise"]) or not rows_probe["equal"],
+          f"{name}: the residual or the node blocks differ from the stacked "
+          f"one-card values, though the gradient einsum rounds a row alike "
+          f"at both cell counts: {out}")
+    check(out["residual"] <= 1.0 and out["blocks"] <= 1.0,
+          f"{name}: the residual or the node blocks are off the stacked "
+          f"one-card values: {out}")
+    return out
+
+
+def _grad_rows_probe(shape, R: int) -> dict:
+    """Does the cells' gradient of a scalar field (`CellBatch.grad`'s
+    einsum over the stacked batch's `grads` of `shape` [c, q, a, d]: a
+    batched GEMM, c of [q, a] x [a, d], in float64) round a row the same
+    over the stacked c cells as over a rank's c / R? cuBLAS picks its
+    batched kernel by the batch count."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    g = torch.randn(tuple(shape), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    n_cells = g.shape[0]
+    u = torch.randn((n_cells, g.shape[2]), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    n = n_cells // R
+    full = torch.einsum("cqad,ca->cqd", g, u)
+    part = torch.einsum("cqad,ca->cqd", g[:n], u[:n])
+    return {"cells": [n_cells, n], "equal": bool(torch.equal(full[:n], part)),
+            "max_abs_diff": float((full[:n] - part).abs().max())}
+
+
+def cards(k1, count: int, one_card_dd_scale) -> dict:
+    """Phase 11: the domain decomposition and the sweep on R cards, one
+    rank each (NCCL), against the same work on one card in this process;
+    then `python -m fedm_tpu_torch.dd_scale --cards R` as a process."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from fedm_tpu_torch.model.system import StepParams
+    from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel
+    from fedm_tpu_torch.parallel import BatchedSweep, rank_checks, ranks
+    from fedm_tpu_torch.solvers import newton
+
+    R = 4 if count >= 4 else 2
+    smi = _smi_lines()
+    out = {"ranks": R, "cards": smi, "grad_rows_probe": {}}
+    for line in smi:
+        log(f"cards: {line}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    # -- one card, this process (card 0): the stacked 8 parts, the
+    # undistributed steps, the one-card sweep
+    t = time.perf_counter()
+    m, md, d = extended_models(Path(tmp))
+    root = next(Path(tmp).iterdir())
+    s, sd = m.initial_state(), md.initial_state()
+    aux, auxd = m._update_aux(s.u), md._update_aux(sd.u)
+    p = StepParams(*REF_EXTENDED["initial"]["params"])
+    F1 = md.system.residual(sd.u, sd.u, sd.u_old1, p, aux=auxd).cpu()
+    B1 = md.system.operators(sd.u, sd.u_old1, p, aux=auxd).jacobian_blocks(
+        torch.zeros_like(sd.u)).cpu()
+    F_und = m.system.residual(s.u, s.u, s.u_old1, p, aux=aux)
+    u0_1 = sd.u.cpu()
+    aux1 = {k: v.cpu() for k, v in auxd.items()
+            if isinstance(v, torch.Tensor) and v.dim() >= 1
+            and v.shape[0] == sd.u.shape[0]}
+    counts = {}
+    patches = {name: counting(counts, name, getattr(newton, name))
+               for name in ("newton_iteration", "bicgstab", "gmres")}
+    one = {}
+    with mock.patch.multiple(newton, **patches):
+        for key, model, st in (("undistributed", m, s),
+                               ("8 parts", md, sd)):
+            counts.clear()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            u1, info = model.system.step(st.u, st.u, st.u_old1,
+                                         model._update_aux(st.u), p)
+            torch.cuda.synchronize()
+            check(info.converged, f"the one-card extended {key} step did "
+                                  f"not converge")
+            one[key] = {"u": u1, "s": time.perf_counter() - t1,
+                        **{k: counts.get(k, 0) for k in
+                           ("newton_iteration", "bicgstab", "gmres")}}
+    slot_of = d._slot_of_t.cpu()
+    u_und = one["undistributed"]["u"].cpu()
+    # K1 at the stacked compact cell table, the kernel's row of this run
+    # where phase 2 did not run
+    b = d._batches[0][0]
+    out["grad_rows_probe"]["extended"] = _grad_rows_probe(b.grads.shape, R)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    flat = torch.randn((b.dofs.numel(), m.n_eq), generator=gen,
+                       device="cuda", dtype=torch.float64)
+    zero_pads(flat, b, d.n_ext)
+    flush = l2_flush()
+    out["k1_case"] = k1_compact_case(
+        f"extended dd cell compact C={m.n_eq} float64", b.scatter_rows,
+        b.scatter_idx, b.gather_idx, b.dofs.reshape(-1).long(), flat,
+        d.n_parts * d.n_ext, k1, gen, flush)
+    del flush
+    del m, md, d, s, sd, aux, auxd
+    sm = StreamerModel(StreamerConfig(), device="cuda")
+    smd = StreamerModel(StreamerConfig(), device="cuda")
+    sdd = smd.distribute(["cuda"] * EXT_PARTS)
+    ss, ssd = sm.initial_state(), smd.initial_state()
+    ps = StepParams(ss.t + ss.dt, ss.dt, ss.dt_old)
+    SF1 = sdd.residual(ssd.u, ssd.u, ssd.u_old1, ps).cpu()
+    SB1 = sdd.operators(ssd.u, ssd.u_old1, ps).jacobian_blocks(
+        torch.zeros_like(ssd.u)).cpu()
+    su_und, sinfo = sm.system.step(ss.u, ss.u, ss.u_old1, {}, ps)
+    check(sinfo.converged, "the one-card streamer step did not converge")
+    s_slot = sdd._slot_of_t.cpu()
+    out["grad_rows_probe"]["streamer"] = _grad_rows_probe(
+        sdd._batches[0][0].grads.shape, R)
+    log(f"cards: the cells' gradient einsum over a rank's cells against "
+        f"the same rows of the stacked ones: {out['grad_rows_probe']}")
+    su_und = su_und.cpu()
+    del sm, smd, sdd, ss, ssd
+    cfg = StreamerConfig()
+    model = StreamerModel(cfg, device="cuda")
+    sw = BatchedSweep(model.system, monitor_idx=1, ttol=cfg.ttol,
+                      dt_min=cfg.dt_min, dt_max=cfg.dt_max)
+    st = sw.from_states([StreamerModel(
+        dataclasses.replace(cfg, seed_amplitude=a),
+        device="cuda").initial_state() for a in SWEEP_AMPS])
+    sweep_one = []
+    for _ in range(SWEEP_ATTEMPTS):
+        st = sw.attempt(st, {})
+        sweep_one.append((_sweep_record(st), st.u.cpu()))
+    del model, sw, st
+    torch.cuda.synchronize()
+    out["one_card_s"] = time.perf_counter() - t
+    out["one_card_steps"] = {k: {kk: v for kk, v in rec.items()
+                                 if kk != "u"} for k, rec in one.items()}
+    log(f"cards: one-card references in {out['one_card_s']:.1f} s: "
+        f"{out['one_card_steps']}")
+
+    # -- R cards, one rank each, one launch
+    ext_spec = dict(model="extended", tree=tmp, tree_name=root.name,
+                    argv=[], n_parts=EXT_PARTS, step=True, control=True,
+                    k1=True)
+    str_spec = dict(model="streamer", cfg={}, n_parts=EXT_PARTS,
+                    elliptic=2, step=True)
+    sw_spec = dict(cfg={}, amps=list(SWEEP_AMPS), attempts=SWEEP_ATTEMPTS)
+    t = time.perf_counter()
+    res = ranks.launch(rank_checks.several, R, "cuda", (
+        [("extended", "dd", ext_spec), ("streamer", "dd", str_spec),
+         ("sweep", "sweep", sw_spec)],), timeout=CARDS_LAUNCH_S)
+    out["launch_s"] = time.perf_counter() - t
+    shutil.rmtree(tmp, ignore_errors=True)
+    ext = [r["extended"] for r in res]
+    devices = [e["card"]["device"] for e in ext]
+    uuids = {e["card"].get("uuid") for e in ext}
+    out["rank_cards"] = [e["card"] for e in ext]
+    log(f"cards: {R} ranks in {out['launch_s']:.1f} s on {devices}")
+    check(devices == [f"cuda:{r}" for r in range(R)] and len(uuids) == R,
+          f"the ranks did not run on {R} distinct cards: {out['rank_cards']}")
+
+    # the extended scheme: layout, residual and blocks bit for bit
+    rp = REF_EXTENDED["partition"]
+    for e in ext:
+        check((e["n_own_max"], e["n_ghost_max"], e["shifts"])
+              == (rp["n_own_max"], rp["n_ghost_max"], rp["shifts"]),
+              f"rank {e['rank']}'s layout differs from the JAX package's")
+    # against the stacked one-card values: bit for bit where the cells'
+    # gradient einsum rounds a row alike at both cell counts; else within
+    # phase 8's distributed-vs-undistributed tolerance, the gap recorded
+    FR, BR = _rank_rows(ext, "F"), _rank_rows(ext, "B")
+    out["residual_blocks"] = _rank_vs_stacked(
+        f"extended, {R} cards vs 8 parts on one", FR, F1, BR, B1,
+        out["grad_rows_probe"]["extended"])
+    # where a gap comes from: the ranks' initial state and coefficients
+    # (computed on the whole mesh on each card) against card 0's
+    out["extended_inputs_bitwise"] = {
+        "u0": torch.equal(_rank_rows(ext, "u0"), u0_1),
+        **{k: torch.equal(torch.cat([e["aux"][k] for e in ext]), v)
+           for k, v in aux1.items()}}
+    log(f"cards: the extended inputs on {R} cards equal card 0's bit for "
+        f"bit: {out['extended_inputs_bitwise']}")
+    steps = [e["step"] for e in ext]
+    keys = ("newton_iterations", "bicgstab_iterations", "gmres_iterations")
+    got = {k: steps[0][k] for k in keys}
+    check(all({k: st_[k] for k in keys} == got for st_ in steps)
+          and all(st_["log"] == steps[0]["log"] for st_ in steps),
+          "the ranks' Newton and Krylov logs differ")
+    lo, hi = REF_EXTENDED["spread"]["bicgstab_iterations"]
+    ref_one = one["8 parts"]
+    check(all(st_["converged"] for st_ in steps)
+          and got["newton_iterations"] == ref_one["newton_iteration"]
+          and (got["bicgstab_iterations"] == ref_one["bicgstab"]
+               or lo <= got["bicgstab_iterations"] <= hi)
+          and got["gmres_iterations"] == 0,
+          f"the extended step on {R} cards: {got}; one card "
+          f"{ref_one}, JAX's spread {lo}-{hi}")
+    u_r = _rank_rows(ext, ("step", "u"))[slot_of]
+    out["extended"] = {
+        "counts": got, "one_card_counts": {
+            k: ref_one[k] for k in ("newton_iteration", "bicgstab",
+                                    "gmres")},
+        "step_s": [st_["s"] for st_ in steps],
+        "one_card_step_s": ref_one["s"],
+        "undistributed_step_s": one["undistributed"]["s"],
+        "k1_launches": [sum(st_["launches"].values()) for st_ in steps],
+        "k1_launches_by_shape": [st_["launches"] for st_ in steps],
+        "state": _close(f"extended step, {R} cards vs undistributed", u_r,
+                        u_und, EXT_STEP_RTOL, atol=EXT_STEP_ATOL),
+        "control_residual": _close(
+            f"extended residual on {R} cards without the cross-rank "
+            f"reverse exchange (control)",
+            _rank_rows(ext, "control_F")[slot_of], F_und.cpu(),
+            EXT_OPS_RTOL, atol_rel=EXT_OPS_ATOL_REL),
+        "control_step": _close(
+            f"extended step on {R} cards without the cross-rank reverse "
+            f"exchange (control)",
+            _rank_rows(ext, ("control_step", "u"))[slot_of], u_und,
+            EXT_STEP_RTOL, atol=EXT_STEP_ATOL),
+        "k1_rank1": ext[1]["k1"]}
+    oe = out["extended"]
+    log(f"cards: extended {oe}")
+    check(oe["state"] <= 1.0, f"the extended step on {R} cards is off the "
+                              f"undistributed step")
+    # (a control step that diverges to NaN is refused too)
+    check(not (oe["control_residual"] <= 1.0 or oe["control_step"] <= 1.0),
+          "a control without the cross-rank reverse exchange passes")
+    check(all(n > 0 for n in oe["k1_launches"]),
+          f"K1 was not launched on every card: {oe['k1_launches']}")
+    kc = oe["k1_rank1"]
+    check(kc["device"] == "cuda:1" and kc["launched"] == 1
+          and kc["max_abs_err"] <= 1e-13 * kc["scale"],
+          f"K1 on card 1 against its plain version: {kc}")
+
+    # the streamer's DD with the distributed elliptic preconditioner
+    sres = [r["streamer"] for r in res]
+    out["streamer_residual_blocks"] = _rank_vs_stacked(
+        f"streamer, {R} cards vs 8 parts on one", _rank_rows(sres, "F"),
+        SF1, _rank_rows(sres, "B"), SB1, out["grad_rows_probe"]["streamer"])
+    ssteps = [r["step"] for r in sres]
+    check(all(st_["converged"] for st_ in ssteps)
+          and all(st_["log"] == ssteps[0]["log"] for st_ in ssteps),
+          "the streamer's step on the cards did not converge, or its "
+          "ranks' logs differ")
+    out["streamer"] = {
+        "counts": {k: ssteps[0][k] for k in keys},
+        "step_s": [st_["s"] for st_ in ssteps],
+        "k1_launches": [sum(st_["launches"].values()) for st_ in ssteps],
+        "state": _close(f"streamer step, distributed elliptic on {R} "
+                        f"cards vs undistributed",
+                        _rank_rows(sres, ("step", "u"))[s_slot], su_und,
+                        EXT_STEP_RTOL, atol=EXT_STEP_ATOL)}
+    log(f"cards: streamer {out['streamer']}")
+    check(out["streamer"]["state"] <= 1.0, f"the streamer's step on {R} "
+                                           f"cards is off the undistributed")
+
+    # the sweep: 8 members over R cards
+    swr = [r["sweep"] for r in res]
+    check([list(range(8))[r_["members"]] for r_ in swr]
+          == [list(range(k * 8 // R, (k + 1) * 8 // R)) for k in range(R)],
+          "the sweep's members are not split evenly over the ranks")
+    init = max(_rel([v for row in swr[0]["initial"]["u_norms"] for v in row],
+                    [v for row in REF_SWEEP["initial"] for v in row]))
+    check(init <= SWEEP_INITIAL_RTOL, "the sweep's initial states on the "
+                                      "cards differ from JAX's")
+    gaps = []
+    for i, (rec1, u1) in enumerate(sweep_one):
+        for r_ in swr:
+            check(r_["records"][i] == swr[0]["records"][i],
+                  "the ranks hold different SweepStates")
+        got = swr[0]["records"][i]
+        for k in ("n_accepted", "n_rejected"):
+            check(got[k] == rec1[k], f"sweep attempt {i + 1} on {R} cards: "
+                                     f"{k} {got[k]} differs from one card's "
+                                     f"{rec1[k]}")
+        # t and dt: equal, or nearly, where the members' kernels run on
+        # fewer rows
+        one_gap = {k: max(_rel(got[k], rec1[k])) for k in ("t", "dt")}
+        log(f"cards: sweep attempt {i + 1}, t and dt against one card's: "
+            f"{one_gap}")
+        check(all(g <= CARDS_TIME_RTOL for g in one_gap.values()),
+              f"sweep attempt {i + 1} on {R} cards: t or dt off one card's "
+              f"by {one_gap}")
+        gaps.append(_sweep_gaps(got, REF_SWEEP["attempts"][i]))
+        _sweep_held(f"attempt {i + 1} on {R} cards", gaps[-1],
+                    SWEEP_ATTEMPT_RTOL)
+    u1 = sweep_one[-1][1]
+    scale = u1.abs().amax(dim=1, keepdim=True)
+    state_gap = float(((swr[0]["u"] - u1).abs() / scale).max())
+    out["sweep"] = {"attempt_s": [r_["attempt_s"] for r_ in swr],
+                    "k1_launches": [r_["launches"] for r_ in swr],
+                    "initial_rel": init, "attempt_gaps": gaps,
+                    "state_gap_to_one_card": state_gap}
+    log(f"cards: sweep {out['sweep']}")
+    check(state_gap <= CARDS_STATE_RTOL, f"the sweep's states on {R} cards "
+                                         f"are {state_gap:.3e} off one "
+                                         f"card's")
+    del res, ext, sres, swr
+
+    # dd_scale on R cards as a process, beside the one-card run
+    if one_card_dd_scale is None:
+        one_card_dd_scale = dd_scale(smi[0], timeout=CARDS_LAUNCH_S)
+    out["dd_scale"] = dd_scale(smi[0], R, timeout=CARDS_LAUNCH_S)
+    out["dd_scale_one_card"] = {
+        k: one_card_dd_scale[k] for k in ("step_s", "undistributed_step_s")}
+    log(f"cards: dd_scale warm step {out['dd_scale']['step_s'][-1]:.3f} s "
+        f"on {R} cards, {one_card_dd_scale['step_s'][-1]:.3f} s on one "
+        f"card (8 parts stacked), "
+        f"{one_card_dd_scale['undistributed_step_s'][-1]:.3f} s "
+        f"undistributed")
+    return out
+
+
+def _cards_launches(out: dict) -> dict:
+    """K1's launches in phase 11, per rank: the extended and the
+    streamer's distributed steps, the sweep's attempts; dd_scale's."""
+    return {"extended": out["extended"]["k1_launches"],
+            "streamer": out["streamer"]["k1_launches"],
+            "sweep": out["sweep"]["k1_launches"],
+            "dd_scale": out["dd_scale"]["k1_launches"]}
+
+
+def cards_only(k1, kind: str, count: int, card: str) -> int:
+    """`--only cards`: phase 11 alone (after phases 0 and 1), with K1's
+    row from its stacked table on card 0."""
+    phase("11 cards")
+    check(count >= 2, f"--only cards needs two or more cards ({count})")
+    out = cards(k1, count, None)
+    signal.alarm(0)
+    case = out["k1_case"]
+    launches = _cards_launches(out)
+    kernels = [{
+        "name": "ell_scatter", "route": "cuda",
+        "source": "fedm_tpu_torch/csrc/ell_scatter.cu",
+        "replaces": "fedm_tpu/ops/pallas_scatter.py:34",
+        "launches": (sum(launches["extended"]) + sum(launches["streamer"])
+                     + sum(launches["sweep"]) + launches["dd_scale"]),
+        "launches_by_path": launches,
+        "max_abs_err": max(case["max_abs_err"],
+                           out["extended"]["k1_rank1"]["max_abs_err"]),
+        "ms": case["ms"], "plain_ms": case["plain_ms"],
+        "bound_ms": case["bound_ms"], "bound_by": "bytes",
+        "library_ms": case["library_ms"], "floor_ms": case["floor_ms"],
+        "event_timed": devtime.event_fallbacks, "cases": [case]}]
+    print(json.dumps({"kernels": kernels, "cards": out}, default=str))
+    for line in out["cards"]:
+        print(line)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": kind, "count": count}}))
+    return 0
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="the port's smoke test on "
+                                             "the card(s)")
+    ap.add_argument("--only", choices=["cards"], default=None,
+                    help="run phases 0, 1 and 11 alone (the multi-card "
+                         "check)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
@@ -2610,6 +3087,9 @@ def main() -> int:
     for line in nvcc_out.splitlines():
         if "ptxas" in line:
             log(line.strip())
+
+    if args.only == "cards":
+        return cards_only(k1, kind, count, card)
 
     phase("2 K1 vs plain")
     from fedm_tpu_torch.fem.assembly import build_ell_index
@@ -2780,6 +3260,15 @@ def main() -> int:
 
     phase("7 tof")
     tof_out = tof(k1, card)
+
+    phase("11 cards")
+    cards_out = None
+    if count < 2:
+        print(f"11 cards: not run, {count} device", file=sys.stderr,
+              flush=True)
+    else:
+        signal.alarm(CARDS_BUDGET_S)
+        cards_out = cards(k1, count, dd_out)
     signal.alarm(0)
     option_launches = collections.Counter()
     for rec in options_out["advance"].values():
@@ -2809,7 +3298,9 @@ def main() -> int:
                              "tof_2d": tof_out["2d_launches"],
                              "extended": ext_out["launches"],
                              "sweep": sweep_out["launches"],
-                             "dd_scale": dd_out["k1_launches"]},
+                             "dd_scale": dd_out["k1_launches"],
+                             "cards": (None if cards_out is None
+                                       else _cards_launches(cards_out))},
         "sweep_launches_by_shape": sweep_out["launches_by_shape"],
         "extended_launches_by_shape":
             ext_out["distributed_step"]["launches_by_shape"],
@@ -2839,7 +3330,8 @@ def main() -> int:
         "fresh_window": window, "rescue": rescue_out, "glow": glow_out,
         "options": options_out,
         "tof": tof_out, "extended": ext_out, "sweep": sweep_out,
-        "streamer_example": example_out, "dd_scale": dd_out}))
+        "streamer_example": example_out, "dd_scale": dd_out,
+        "cards": cards_out, "depth": _depth}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -5,11 +5,12 @@ from .coefficients import Coefficient, RateCoefficients, TransportCoefficients
 from .parsers import (rate_coefficient_file_names, reaction_matrices,
                       read_energy_loss, read_particle_properties,
                       read_speclist)
-from .sources import energy_source_factors, reaction_rates
+from .sources import (energy_source_factors, reaction_rates,
+                      semi_implicit_coefficient, species_sources)
 
 __all__ = [
     "Coefficient", "RateCoefficients", "TransportCoefficients",
     "rate_coefficient_file_names", "reaction_matrices", "read_energy_loss",
     "read_particle_properties", "read_speclist", "energy_source_factors",
-    "reaction_rates",
+    "reaction_rates", "semi_implicit_coefficient", "species_sources",
 ]

@@ -34,6 +34,16 @@ def reaction_rates(k: torch.Tensor, power_matrix,
     return (k * half) * half
 
 
+def species_sources(rates: torch.Tensor, loss_matrix,
+                    gain_matrix) -> torch.Tensor:
+    """f_i = sum_j rate_j (g_ji - l_ji): rates [..., n_r] -> [..., n_sp];
+    the matrices [n_r, n_sp] are copied to `rates`' device and type."""
+    def mat(a):
+        return torch.as_tensor(a, dtype=rates.dtype, device=rates.device)
+
+    return rates @ (mat(gain_matrix) - mat(loss_matrix))
+
+
 def energy_source_factors(u_loss: Sequence[float], mean_energy: torch.Tensor,
                           Ei: float = 0.0) -> torch.Tensor:
     """Per-reaction energy-loss factor [..., n_r]; the energy source is then
@@ -49,3 +59,13 @@ def energy_source_factors(u_loss: Sequence[float], mean_energy: torch.Tensor,
             cols.append(torch.full_like(mean_energy, loss))
     return torch.stack(cols, dim=-1)
 
+
+def semi_implicit_coefficient(k: torch.Tensor, dk: torch.Tensor,
+                              mean_energy_lin: torch.Tensor,
+                              mean_energy_old: torch.Tensor) -> torch.Tensor:
+    """Semi-implicit linearisation of an energy-dependent coefficient,
+    k_si = k + (dk/d eps)(eps_lin - eps_old) (the reference's
+    `functions.py:753-774`); `mean_energy_lin` may depend on the trial
+    state, and forward-mode AD then carries this term into the Jacobian
+    action, as the reference's UFL expression does."""
+    return k + dk * (mean_energy_lin - mean_energy_old)

@@ -1,17 +1,20 @@
-"""Device timing on the GPU, shared by chip_smoke.py and the measurement
-scripts under tools/: the device time of a call from a profiler trace (or,
-where the profiler drops its traces, from CUDA events around each call
-queued behind a spin kernel), cold (L2 flushed before every call) or warm,
-and the host-issue rate of eager calls from CUDA events.
+"""Device timing on the GPU, shared by chip_smoke.py, the entry points
+and the measurement scripts under tools/: the device time of a call from
+a profiler trace (or, where the profiler drops its traces, from CUDA
+events around each call queued behind a spin kernel), cold (L2 flushed
+before every call) or warm, the host-issue rate of eager calls from CUDA
+events, and a rank's wall time on its own card with the card it ran on.
 
     flush = l2_flush()
     cold = device_ms(fn, [(x,)] * 20, flush)
     warm = device_ms(fn, [(x,)] * 20)
+    out, seconds = on_card(fn, device)     # card_of(device): which card
 """
 
 from __future__ import annotations
 
 import sys
+import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -38,6 +41,32 @@ def l2_flush(device="cuda"):
     rows = torch.zeros((2 * L2_BYTES // 512, 64), dtype=torch.int64,
                        device=device)
     return lambda: rows.amax(dim=1)
+
+
+def card_of(device) -> dict:
+    """Which card `device` is: its index, name and UUID (on the CPU, the
+    device name alone)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {"device": str(dev)}
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    props = torch.cuda.get_device_properties(index)
+    return {"device": f"cuda:{index}", "name": props.name,
+            "uuid": str(getattr(props, "uuid", ""))}
+
+
+def on_card(fn, device):
+    """(fn(), wall seconds) on the host clock, the card `device`
+    synchronized before and after: a rank's time for work on its own
+    card (collectives included)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t
 
 
 def eager_ms(fn, reps: int = 50, warmup: int = 3) -> float:

@@ -221,17 +221,19 @@ class PlasmaModel:
 
     _dist = None
 
-    def distribute(self, devices):
+    def distribute(self, devices, group=None):
         """Swap the system for a DOF-partitioned `DistributedSystem` over
-        `devices` (N parts; `parallel.dd`). Call before `initial_state()`,
-        which then gives the state in the distributed layout. The
-        per-advance coefficient update gathers the state back to the
-        original numbering and scatters its fields to the distributed
-        layout (once per advance, beside the halo-exchanged inner
-        loops)."""
+        `devices` (N parts; `parallel.dd`), on the ranks of `group` when
+        given (`parallel.ranks`: this process's parts are its rank's).
+        Call before `initial_state()`, which then gives the state in the
+        distributed layout (this rank's rows). The per-advance coefficient
+        update gathers the state back to the original numbering (an
+        all-gather over the group) and scatters its fields to the
+        distributed layout (once per advance, beside the halo-exchanged
+        inner loops)."""
         from ..parallel.dd import DistributedSystem
 
-        self._dist = DistributedSystem(self.system, devices)
+        self._dist = DistributedSystem(self.system, devices, group)
         self.system = self._dist
         base_update = self._update_aux
 

@@ -665,14 +665,16 @@ class StreamerModel:
 
     # -- initial state --------------------------------------------------------
 
-    def distribute(self, devices):
+    def distribute(self, devices, group=None):
         """Swap the system for a DOF-partitioned `DistributedSystem` over
-        `devices` (N parts; `parallel.dd`). Call before `initial_state()`,
-        which then gives the state in the distributed layout; its Poisson
-        solve keeps the inner system's preconditioner."""
+        `devices` (N parts; `parallel.dd`), on the ranks of `group` when
+        given (`parallel.ranks`). Call before `initial_state()`, which then
+        gives the state in the distributed layout (this rank's rows); its
+        Poisson solve, on the whole mesh in every rank, keeps the inner
+        system's preconditioner."""
         from ..parallel.dd import DistributedSystem
 
-        self.system = DistributedSystem(self.system, devices)
+        self.system = DistributedSystem(self.system, devices, group)
         return self.system
 
     def initial_state(self) -> TimeState:

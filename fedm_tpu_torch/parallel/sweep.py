@@ -1,5 +1,6 @@
 """Batched parameter sweeps: B independent simulations of one system on
-one device (the JAX package's `parallel/sweep.py`).
+one device, or on the cards of a process group (the JAX package's
+`parallel/sweep.py`).
 
 The reference's users run a sweep (a seed amplitude, an applied voltage)
 as one job per value. Here the B members advance together: each attempt is
@@ -8,6 +9,12 @@ scatter launch per operation whatever B is, where the JAX package runs
 one `vmap` of `CoupledSystem._step`. Every member marches with its own
 adaptive dt: the attempts run in lockstep, acceptance and rejection are
 per member on the host, with the reference's shrink rules.
+
+Over the ranks of a process group (`parallel.ranks`, one per card) the B
+members split into R blocks of B/R, each rank stepping its own block
+through its own `BatchedSystem`; no number crosses ranks inside an
+attempt, and after it the members' results are all-gathered, so every
+rank holds the whole `SweepState` and takes the same decisions.
 
 The history rotation is the JAX package's, line for line: an attempt
 solves from (u, u_old1) and an accepted member rotates u_old <- u,
@@ -28,7 +35,7 @@ import torch
 from ..model.system import BatchedSystem, CoupledSystem, StepParams
 from ..timestepping.controllers import adaptive_timestep
 from ..timestepping.driver import step_error_norm
-from .dd import _one_device
+from .dd import _one_device, rank_device
 
 
 @dataclass
@@ -57,21 +64,35 @@ class BatchedSweep:
 
     `batch_sharding`: where the batch lives, a device or a sequence of
     devices (the counterpart of the JAX package's NamedSharding over the
-    batch axis). One device (repeated or not) places the states there; it
-    must be the system's. Distinct devices raise NotImplementedError, as
-    `distribute` does: a batch over several cards is not ported yet."""
+    batch axis). Without a `group`, one device (repeated or not) places
+    the states there; it must be the system's, and distinct devices raise
+    NotImplementedError, as `distribute` does. With a `group`
+    (`parallel.ranks.Group`) the members split evenly over its ranks, rank
+    r stepping members [r*B/R, (r+1)*B/R) on its card with `system` (built
+    on that card); `batch_sharding`, one device per member, must then list
+    the rank's card for its members (None: every member on its rank's
+    card)."""
 
     def __init__(self, system: CoupledSystem, monitor_idx: int, ttol: float,
                  dt_min: float, dt_max: float, controller=adaptive_timestep,
-                 batch_sharding=None):
+                 batch_sharding=None, group=None):
         self.system = system
         self.monitor_idx = monitor_idx
         self.ttol = ttol
         self.dt_min = dt_min
         self.dt_max = dt_max
         self.controller = controller
+        self.group = group
         self.device = None
-        if batch_sharding is not None:
+        if group is not None:
+            self.device = group.device
+            if batch_sharding is not None:
+                rank_device(list(batch_sharding), group)
+            held = system.bcs.mask.device
+            if self.device != held:
+                raise ValueError(f"the system lives on {held}; rank "
+                                 f"{group.rank} runs on {self.device}")
+        elif batch_sharding is not None:
             devs = (list(batch_sharding)
                     if isinstance(batch_sharding, (list, tuple))
                     else [batch_sharding])
@@ -89,13 +110,28 @@ class BatchedSweep:
             self._batched[n_members] = BatchedSystem(self.system, n_members)
         return self._batched[n_members]
 
-    def _verr(self, u_new: torch.Tensor, u: torch.Tensor) -> np.ndarray:
+    def _verr(self, u_new: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         i = self.monitor_idx
-        return step_error_norm(u_new[:, :, i], u[:, :, i],
-                               dim=1).cpu().numpy()
+        return step_error_norm(u_new[:, :, i], u[:, :, i], dim=1)
+
+    def _members(self, B: int) -> slice:
+        """This rank's members of a batch of B."""
+        if self.group is None:
+            return slice(0, B)
+        R = self.group.size
+        if B % R:
+            raise ValueError(f"{B} members do not split evenly over {R} "
+                             f"ranks")
+        n = B // R
+        return slice(self.group.rank * n, (self.group.rank + 1) * n)
 
     def from_states(self, states: List) -> SweepState:
-        """Stack single-simulation TimeStates into a SweepState."""
+        """Stack single-simulation TimeStates into a SweepState. Over a
+        group, each rank gives the states of its own members (the others'
+        entries may be None) and gets every member's, from its rank."""
+        if self.group is not None:
+            return self._gathered(states)
+
         def stack(xs):
             u = torch.stack(xs)
             return u if self.device is None else u.to(self.device)
@@ -109,6 +145,24 @@ class BatchedSweep:
             dt_old=np.array([s.dt_old for s in states]),
             max_error=np.array([s.max_error for s in states]),
         )
+
+    def _gathered(self, states: List) -> SweepState:
+        own = states[self._members(len(states))]
+        rows = self.group.all_gather_rows
+
+        def stack(xs):
+            return rows(torch.stack(xs).to(self.device))
+
+        def host(xs):
+            return rows(torch.as_tensor(np.array(xs, dtype=np.float64),
+                                        device=self.device)).cpu().numpy()
+
+        return SweepState(
+            u=stack([s.u for s in own]), u_old=stack([s.u_old for s in own]),
+            u_old1=stack([s.u_old1 for s in own]),
+            t=host([s.t for s in own]), dt=host([s.dt for s in own]),
+            dt_old=host([s.dt_old for s in own]),
+            max_error=host([s.max_error for s in own]))
 
     def attempt(self, st: SweepState, aux: Dict,
                 active: np.ndarray = None) -> SweepState:
@@ -125,11 +179,20 @@ class BatchedSweep:
         if active is None:
             active = np.ones(B, dtype=bool)
         t_try = st.t + st.dt
-        params = StepParams(t_try, st.dt, st.dt_old)
-        u_new, info = self.batched(B).step(st.u, st.u, st.u_old1, aux,
-                                           params, active=active)
+        mine = self._members(B)
+        params = StepParams(t_try[mine], st.dt[mine], st.dt_old[mine])
+        u_new, info = self.batched(mine.stop - mine.start).step(
+            st.u[mine], st.u[mine], st.u_old1[mine], aux, params,
+            active=active[mine])
+        errs = self._verr(u_new, st.u[mine])
         conv = np.asarray(info.converged)
-        errs = self._verr(u_new, st.u)
+        if self.group is not None:
+            # every member's result on every rank
+            u_new = self.group.all_gather_rows(u_new)
+            errs = self.group.all_gather_rows(errs)
+            conv = self.group.all_gather_rows(torch.as_tensor(
+                conv, dtype=errs.dtype, device=errs.device)).cpu().numpy() > 0
+        errs = errs.cpu().numpy()
 
         accept = conv & (errs < self.ttol) & active
         # device-side select of accepted members

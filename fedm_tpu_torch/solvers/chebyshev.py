@@ -10,19 +10,28 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .linear import combine_norms
+
 
 def power_iteration_lmax(matvec: Callable, n: int, iters: int = 50,
-                         seed: int = 0, device="cpu") -> float:
+                         seed: int = 0, device="cpu", rows=None,
+                         group=None) -> float:
     """Largest-eigenvalue estimate of a (scaled) SPD operator after a fixed
     `iters` iterations, from the float64 start vector
     `np.random.default_rng(seed).standard_normal(n)` of the JAX package
-    (its last bits set every smoother built on the estimate)."""
-    x = torch.as_tensor(np.random.default_rng(seed).standard_normal(n),
-                        dtype=torch.float64, device=device)
+    (its last bits set every smoother built on the estimate). Over a
+    `group` (`parallel.ranks`), `matvec` maps this rank's `rows` (a slice
+    of the n) and the norm is summed over the ranks: each rank starts from
+    its rows of the same global vector, so the estimate is the JAX
+    package's up to the order of the norm's sum."""
+    x = np.random.default_rng(seed).standard_normal(n)
+    if rows is not None:
+        x = x[rows]
+    x = torch.as_tensor(x, dtype=torch.float64, device=device)
     lam = 1.0
     for _ in range(iters):
         y = matvec(x)
-        lam = float(torch.linalg.vector_norm(y))
+        lam = float(combine_norms(torch.linalg.vector_norm(y), group))
         x = y / lam
     return lam
 

@@ -21,29 +21,57 @@ _F64 = torch.float64
 TINY = 1e-290
 
 
-def _scale_of(af: torch.Tensor) -> torch.Tensor:
-    s = af.abs().max()
+def _guard(s: torch.Tensor) -> torch.Tensor:
     return torch.where((s > 0) & torch.isfinite(s), s, 1.0)
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def reduce(x: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
+    """`x` reduced elementwise (op sum, max or min) over the ranks of a
+    `group` (`parallel.ranks`): `x` itself without one, and over one rank
+    (`Group.all_reduce`)."""
+    return x if group is None else group.all_reduce(x, op)
+
+
+def combine_norms(n: torch.Tensor, group=None) -> torch.Tensor:
+    """2-norms of each rank's rows -> the 2-norms over every rank's rows;
+    `n` itself without a group or over one rank."""
+    if group is None or group.size == 1:
+        return n
+    return torch.sqrt(group.all_reduce(n * n))
+
+
+def _scale_of(af: torch.Tensor) -> torch.Tensor:
+    return _guard(af.abs().max())
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
     """float64 inner product, range-scaled: both vectors are normalised by
     their max magnitudes first, and the smaller scale is multiplied in
     before the larger, so no intermediate leaves the range the result
-    needs (the JAX package's `_dot`)."""
+    needs (the JAX package's `_dot`). With a `group` the vectors are each
+    rank's rows: the scales are the max over the ranks (one all-reduce of
+    both), the scaled local dots are summed over them (a second)."""
     af = a.reshape(-1).to(_F64)
     bf = b.reshape(-1).to(_F64)
-    sa, sb = _scale_of(af), _scale_of(bf)
+    sa, sb = _guard(reduce(torch.stack([af.abs().max(), bf.abs().max()]),
+                           group, "max")).unbind()
+    d = reduce(torch.dot(af / sa, bf / sb), group)
     s_min, s_max = torch.minimum(sa, sb), torch.maximum(sa, sb)
-    return s_max * (torch.dot(af / sa, bf / sb) * s_min)
+    return s_max * (d * s_min)
 
 
-def _norm(a: torch.Tensor) -> torch.Tensor:
-    """float64 2-norm that never forms the unscaled sum of squares."""
+def _norm(a: torch.Tensor, group=None) -> torch.Tensor:
+    """float64 2-norm that never forms the unscaled sum of squares; over a
+    `group`'s rows as `_dot`."""
     af = a.reshape(-1).to(_F64)
-    sa = _scale_of(af)
+    sa = _guard(reduce(af.abs().max(), group, "max"))
     an = af / sa
-    return sa * torch.sqrt(torch.dot(an, an))
+    return sa * torch.sqrt(reduce(torch.dot(an, an), group))
+
+
+def finite(x: torch.Tensor, group=None) -> bool:
+    """Every entry finite (over every rank of a `group`)."""
+    return bool(reduce(torch.isfinite(x).all().to(_F64), group, "min") > 0)
 
 
 def _identity(x):
@@ -58,42 +86,44 @@ def _where_small(x: torch.Tensor, tiny: float) -> torch.Tensor:
 def cg(matvec: Callable, b: torch.Tensor,
        x0: Optional[torch.Tensor] = None,
        precond: Optional[Callable] = None, tol: float = 1e-10,
-       atol: float = 0.0, maxiter: int = 1000):
+       atol: float = 0.0, maxiter: int = 1000, group=None):
     """Preconditioned conjugate gradients for SPD operators. The two
     denominators are guarded by the float64 floor TINY, which only an
     exactly zero p.Ap or r.z reaches: on an SPD system the iterates are the
-    JAX package's `cg`."""
+    JAX package's `cg`. `group`: the vectors are each rank's rows."""
     M = precond or _identity
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     p = M(r)
-    rz = _dot(r, p)
-    bnorm = float(torch.clamp(_norm(b), min=1e-300))
+    rz = _dot(r, p, group)
+    bnorm = float(torch.clamp(_norm(b, group), min=1e-300))
     target = max(tol * bnorm, atol)
     k = 0
     dt = x.dtype
-    while float(_norm(r)) > target and k < maxiter:
+    while float(_norm(r, group)) > target and k < maxiter:
         Ap = matvec(p)
-        alpha = (rz / _where_small(_dot(p, Ap), TINY)).to(dt)
+        alpha = (rz / _where_small(_dot(p, Ap, group), TINY)).to(dt)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = _dot(r, z)
+        rz_new = _dot(r, z, group)
         beta = (rz_new / _where_small(rz, TINY)).to(dt)
         p = z + beta * p
         rz = rz_new
         k += 1
-    return x, _norm(r) / bnorm, k
+    return x, _norm(r, group) / bnorm, k
 
 
 def bicgstab(matvec: Callable, b: torch.Tensor,
              x0: Optional[torch.Tensor] = None,
              precond: Optional[Callable] = None, tol: float = 1e-8,
              maxiter: int = 1000, stall_window: int = 0,
-             stall_factor: float = 0.99):
+             stall_factor: float = 0.99, group=None):
     """Right-preconditioned BiCGStab. Breakdown (rho or omega underflow)
     exits early. `stall_window > 0` exits after that many iterations
-    without the residual dropping below `stall_factor` times its best."""
+    without the residual dropping below `stall_factor` times its best.
+    `group`: the vectors are each rank's rows, every dot and norm is
+    all-reduced, so every rank stops at the same iteration."""
     M = precond or _identity
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
@@ -101,34 +131,34 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
     one = torch.ones((), dtype=_F64, device=b.device)
     rho = alpha = omega = one
     v = p = torch.zeros_like(b)
-    bnorm = float(torch.clamp(_norm(b), min=1e-300))
+    bnorm = float(torch.clamp(_norm(b, group), min=1e-300))
     target = tol * bnorm
-    rnorm = _norm(r)
+    rnorm = _norm(r, group)
     best = rnorm
     window = stall_window if stall_window > 0 else maxiter + 1
     k, since, broke = 0, 0, False
     dt = x.dtype
     while float(rnorm) > target and k < maxiter and not broke \
             and since < window:
-        rho_new = _dot(rhat, r)
+        rho_new = _dot(rhat, r, group)
         breakdown = rho_new.abs() < TINY
         beta = ((rho_new / torch.where(breakdown, 1.0, rho))
                 * (alpha / _where_small(omega, TINY)))
         p = r + beta.to(dt) * (p - omega.to(dt) * v)
         phat = M(p)
         v = matvec(phat)
-        denom = _dot(rhat, v)
+        denom = _dot(rhat, v, group)
         breakdown = breakdown | (denom.abs() < TINY)
         alpha = rho_new / torch.where(breakdown, 1.0, denom)
         s = r - alpha.to(dt) * v
         shat = M(s)
         t = matvec(shat)
-        tt = _dot(t, t)
-        omega = _dot(t, s) / torch.where(tt < TINY, 1.0, tt)
+        tt = _dot(t, t, group)
+        omega = _dot(t, s, group) / torch.where(tt < TINY, 1.0, tt)
         x = x + alpha.to(dt) * phat + omega.to(dt) * shat
         r = s - omega.to(dt) * t
         rho = rho_new
-        rnorm = _norm(r)
+        rnorm = _norm(r, group)
         if stall_window > 0:
             improved = bool(rnorm < stall_factor * best)
             best = torch.minimum(best, torch.where(torch.isfinite(rnorm),
@@ -143,22 +173,24 @@ def gmres(matvec: Callable, b: torch.Tensor,
           x0: Optional[torch.Tensor] = None,
           precond: Optional[Callable] = None, tol: float = 1e-8,
           maxiter: int = 1000, restart: int = 30,
-          stall_window: int = 0, stall_factor: float = 0.99):
+          stall_window: int = 0, stall_factor: float = 0.99, group=None):
     """Restarted GMRES(m) with right preconditioning and Givens rotations;
     the monitored residual is the true one. The small Hessenberg problem is
     solved in float64 on the host. `stall_window > 0` adds the plateau exit
-    of `bicgstab` inside a cycle and a cycle-level stagnation exit."""
+    of `bicgstab` inside a cycle and a cycle-level stagnation exit.
+    `group`: as `bicgstab`'s (the Hessenberg problem, built from
+    all-reduced dots, is the same on every rank)."""
     M = precond or _identity
     m = restart
     window = stall_window if stall_window > 0 else maxiter + 1
     shape = b.shape
     x = torch.zeros_like(b) if x0 is None else x0
-    bnorm = float(torch.clamp(_norm(b), min=1e-300))
+    bnorm = float(torch.clamp(_norm(b, group), min=1e-300))
     target = tol * bnorm
 
     def arnoldi_cycle(x):
         r = b - matvec(x)
-        beta = float(_norm(r))
+        beta = float(_norm(r, group))
         V = torch.zeros((m + 1, b.numel()), dtype=b.dtype, device=b.device)
         V[0] = (r / max(beta, TINY)).reshape(-1)
         g = np.zeros(m + 1)
@@ -171,10 +203,10 @@ def gmres(matvec: Callable, b: torch.Tensor,
             hcol = np.zeros(m + 1)
             # modified Gram-Schmidt against V[0..j]
             for k in range(j + 1):
-                hk = float(_dot(V[k], w))
+                hk = float(_dot(V[k], w, group))
                 w = w - hk * V[k]
                 hcol[k] = hk
-            hj1 = float(_norm(w))
+            hj1 = float(_norm(w, group))
             V[j + 1] = w / max(hj1, TINY)
             hcol[j + 1] = hj1
             for k in range(j):  # previously accumulated rotations
@@ -204,7 +236,7 @@ def gmres(matvec: Callable, b: torch.Tensor,
         z = (yt @ V[:m]).reshape(shape)
         return x + M(z), res, j
 
-    r0 = float(_norm(b - matvec(x)))
+    r0 = float(_norm(b - matvec(x), group))
     res, k, stagnant = r0, 0, False
     while res > target and k < maxiter and not stagnant:
         res_prev = res
@@ -236,12 +268,13 @@ def _rows(a: torch.Tensor) -> torch.Tensor:
 
 
 def _scale_b(af: torch.Tensor) -> torch.Tensor:
-    s = af.abs().amax(dim=1)
-    return torch.where((s > 0) & torch.isfinite(s), s, 1.0)
+    return _guard(af.abs().amax(dim=1))
 
 
 def dot_b(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """`_dot` of each member: [B, ...] x [B, ...] -> [B] float64."""
+    """`_dot` of each member: [B, ...] x [B, ...] -> [B] float64. Members
+    split over ranks (`parallel.sweep`) each stay on one rank, so these
+    reduce over no group."""
     af, bf = _rows(a), _rows(b)
     sa, sb = _scale_b(af), _scale_b(bf)
     s_min, s_max = torch.minimum(sa, sb), torch.maximum(sa, sb)

@@ -30,8 +30,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .linear import (_norm, _where_b, bicgstab, bicgstab_batched, finite_b,
-                     gmres, gmres_batched, norm_b)
+from .linear import (_norm, _where_b, bicgstab, bicgstab_batched, finite,
+                     finite_b, gmres, gmres_batched, norm_b)
 
 LINEAR_SOLVERS = ("bicgstab", "gmres")
 
@@ -77,6 +77,11 @@ class NewtonConfig:
     # the host loop (`newton_solve`) rather than the whole-solve loop
     # (`newton_krylov`); the driver predicts a guess only into the former
     host_loop: bool = False
+    # build the block preconditioner once, at the initial iterate, instead
+    # of at every iterate (PETSc's -snes_lag_jacobian); the whole-solve
+    # loops (`newton_krylov`, `newton_krylov_batched`) honour it, the host
+    # loop does not, as in the JAX package
+    freeze_precond: bool = False
 
     def __post_init__(self):
         if self.linear_solver not in LINEAR_SOLVERS:
@@ -93,12 +98,8 @@ class NewtonInfo(NamedTuple):
     stall_accepted: bool = False
 
 
-def _finite(x: torch.Tensor) -> bool:
-    return bool(torch.isfinite(x).all())
-
-
 def _direction(jvp: Callable, f: torch.Tensor, M: Callable,
-               config: NewtonConfig):
+               config: NewtonConfig, group=None):
     """The Krylov solve of J d = -f: (d, linear relative residual)."""
     # left preconditioning: the Krylov tolerance becomes a per-row relative
     # accuracy on the log-form rows of wildly different scale
@@ -107,13 +108,13 @@ def _direction(jvp: Callable, f: torch.Tensor, M: Callable,
 
     rhs = M(-f)
     kw = dict(tol=config.linear_tol, maxiter=config.linear_maxiter,
-              stall_window=config.linear_stall_window)
+              stall_window=config.linear_stall_window, group=group)
     if config.linear_solver == "gmres":
         d, linres, _ = gmres(op, rhs, restart=config.gmres_restart, **kw)
         return d, float(linres)
     d, linres, _ = bicgstab(op, rhs, **kw)
     lr = float(linres)
-    d_ok = _finite(d)
+    d_ok = finite(d, group)
     if config.gmres_fallback and (lr > config.linear_tol
                                   or not math.isfinite(lr) or not d_ok):
         # a non-finite direction restarts GMRES from zero
@@ -122,25 +123,26 @@ def _direction(jvp: Callable, f: torch.Tensor, M: Callable,
                              **kw)
         lr = float(linres)
     if config.true_res_rescue > 0:
-        d = _true_res_rescue(jvp, f, M, d, config)
+        d = _true_res_rescue(jvp, f, M, d, config, group)
     return d, lr
 
 
-def _true_res_rescue(jvp, f, M, d, config: NewtonConfig) -> torch.Tensor:
+def _true_res_rescue(jvp, f, M, d, config: NewtonConfig,
+                     group=None) -> torch.Tensor:
     """Keep `d`, or the right-preconditioned GMRES direction when `d`
     does not reduce the true linear residual by `true_res_rescue` and the
     GMRES one reduces it more."""
-    f_n = _norm(f)
-    lt0 = float(_norm(f + jvp(d)) / f_n)
+    f_n = _norm(f, group)
+    lt0 = float(_norm(f + jvp(d), group) / f_n)
     if math.isfinite(lt0) and lt0 <= config.true_res_rescue:
         return d
     y, _, _ = gmres(lambda v: jvp(M(v)), -f, tol=config.linear_tol,
                     maxiter=config.linear_maxiter,
                     restart=config.gmres_restart,
-                    stall_window=config.linear_stall_window)
+                    stall_window=config.linear_stall_window, group=group)
     d2 = M(y)
-    if _finite(d2):
-        lt2 = float(_norm(f + jvp(d2)) / f_n)
+    if finite(d2, group):
+        lt2 = float(_norm(f + jvp(d2), group) / f_n)
     else:
         d2, lt2 = torch.zeros_like(d2), math.inf
     return d2 if (lt2 < lt0 or not math.isfinite(lt0)) else d
@@ -149,7 +151,7 @@ def _true_res_rescue(jvp, f, M, d, config: NewtonConfig) -> torch.Tensor:
 def newton_iteration(residual: Callable, jacobian_action: Callable,
                      u: torch.Tensor, fnorm: float, config: NewtonConfig,
                      precond_builder: Callable,
-                     residual_hi: Optional[Callable] = None):
+                     residual_hi: Optional[Callable] = None, group=None):
     """One damped Newton-Krylov iteration at the iterate `u`.
 
     `jacobian_action(u)` returns the map v -> J(u) v and
@@ -157,6 +159,8 @@ def newton_iteration(residual: Callable, jacobian_action: Callable,
     when given, is a float64
     evaluation of the same residual: it supplies the Newton right-hand side
     and every line-search norm (the incoming `fnorm` must come from it too).
+    `group` (`parallel.ranks`): `u` is each rank's rows; every norm, and
+    so every decision, is the same on every rank.
 
     Returns (u_new, fnorm_new, linres, improved, step_ok): `u_new` and
     `fnorm_new` keep the incoming iterate when the line search finds no
@@ -167,7 +171,7 @@ def newton_iteration(residual: Callable, jacobian_action: Callable,
          else residual(u))
     res_ls = residual if residual_hi is None else residual_hi
     M = precond_builder(u)
-    delta, linres = _direction(jvp, f, M, config)
+    delta, linres = _direction(jvp, f, M, config, group)
     if config.delta_clip:
         lim = torch.as_tensor(config.delta_clip, dtype=delta.dtype,
                               device=delta.device)
@@ -175,11 +179,11 @@ def newton_iteration(residual: Callable, jacobian_action: Callable,
 
     # backtracking line search, the full step probed first
     lam, h = 1.0, 0
-    fnew = float(_norm(res_ls(u + delta)))
+    fnew = float(_norm(res_ls(u + delta), group))
     while (not fnew <= (1.0 - config.armijo * lam) * fnorm
            and h < config.max_halvings):
         lam *= 0.5
-        fnew = float(_norm(res_ls(u + lam * delta)))
+        fnew = float(_norm(res_ls(u + lam * delta), group))
         h += 1
     # a non-reducing iteration keeps the better iterate (a stall)
     if not (math.isfinite(fnew) and fnew < fnorm):
@@ -188,7 +192,8 @@ def newton_iteration(residual: Callable, jacobian_action: Callable,
     # stol: an improving full step already below stol * ||iterate||; a
     # damped step's small update means stuck, not converged
     step_ok = (config.stol > 0 and lam >= 1.0
-               and float(_norm(delta)) <= config.stol * float(_norm(u_new)))
+               and float(_norm(delta, group))
+               <= config.stol * float(_norm(u_new, group)))
     return u_new, fnew, linres, True, step_ok
 
 
@@ -215,7 +220,7 @@ def newton_solve(residual: Callable, jacobian_action: Callable,
                  precond_builder: Callable,
                  residual_hi: Optional[Callable] = None,
                  predicted: bool = False, dyn_atol: float = 0.0,
-                 lazy_rescue: bool = True):
+                 lazy_rescue: bool = True, group=None):
     """Solve residual(delta) = 0 from `delta`, one host-driven iteration at
     a time. Returns (delta, NewtonInfo).
 
@@ -224,12 +229,13 @@ def newton_solve(residual: Callable, jacobian_action: Callable,
     guess does not have the smaller residual. `dyn_atol` is a further
     absolute target (the driver's floor_atol). `lazy_rescue`: the
     true-residual rescue runs only on an iteration that did not improve,
-    taken again with it; else on every direction."""
+    taken again with it; else on every direction. `group`: `delta` is
+    each rank's rows (`newton_iteration`)."""
     res0 = residual if residual_hi is None else residual_hi
-    f0 = f_guess = float(_norm(res0(delta)))
+    f0 = f_guess = float(_norm(res0(delta), group))
     if predicted:
         zero = torch.zeros_like(delta)
-        f00 = float(_norm(res0(zero)))
+        f00 = float(_norm(res0(zero), group))
         if not math.isfinite(f0) or f0 >= f00:
             delta, f0 = zero, f00
         f0 = min(f0, f00)
@@ -245,10 +251,11 @@ def newton_solve(residual: Callable, jacobian_action: Callable,
            and stalls < config.max_stalls and math.isfinite(fnorm)
            and not step_ok):
         out = newton_iteration(residual, jacobian_action, delta, fnorm, hot,
-                               precond_builder, residual_hi)
+                               precond_builder, residual_hi, group)
         if lazy and not out[3]:
             out = newton_iteration(residual, jacobian_action, delta, fnorm,
-                                   config, precond_builder, residual_hi)
+                                   config, precond_builder, residual_hi,
+                                   group)
         delta, fnorm, linres, improved, step_ok = out
         stalls = 0 if improved else stalls + 1
         k += 1
@@ -264,13 +271,25 @@ def newton_solve(residual: Callable, jacobian_action: Callable,
 def newton_krylov(residual: Callable, jacobian_action: Callable,
                   delta: torch.Tensor, config: NewtonConfig,
                   precond_builder: Callable,
-                  residual_hi: Optional[Callable] = None):
+                  residual_hi: Optional[Callable] = None, group=None):
     """The JAX package's whole-solve loop: the target is max(rtol *
     ||R(delta)||, atol), with no predictor anchoring and no dynamic
-    target, and the configured rescue checks every direction. Returns
+    target, and the configured rescue checks every direction; with
+    `freeze_precond` the preconditioner is built once, at `delta`. Returns
     (delta, NewtonInfo)."""
     return newton_solve(residual, jacobian_action, delta, config,
-                        precond_builder, residual_hi, lazy_rescue=False)
+                        _frozen(precond_builder, delta, config), residual_hi,
+                        lazy_rescue=False, group=group)
+
+
+def _frozen(precond_builder: Callable, delta: torch.Tensor,
+            config: NewtonConfig) -> Callable:
+    """`precond_builder`, or with `freeze_precond` a builder that returns
+    the preconditioner built once, at `delta`."""
+    if not config.freeze_precond:
+        return precond_builder
+    M = precond_builder(delta)
+    return lambda _u: M
 
 
 # -- batched: B independent solves on a leading member axis ------------------
@@ -410,6 +429,7 @@ def newton_krylov_batched(residual: Callable, jacobian_action: Callable,
                 & (stalls < config.max_stalls) & np.isfinite(fnorm)
                 & ~step_ok)
 
+    precond_builder = _frozen(precond_builder, delta, config)
     run = running()
     while run.any():
         delta, fn, lr, improved, ok = newton_iteration_batched(

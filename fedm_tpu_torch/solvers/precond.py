@@ -24,14 +24,18 @@ def _guard(inv: torch.Tensor, A: torch.Tensor, with_count: bool):
     return out
 
 
-def invert_blocks(A: torch.Tensor, with_count: bool = False):
+def invert_blocks(A: torch.Tensor, reg: float = 0.0,
+                  with_count: bool = False):
     """Invert a batch of small matrices A [n, k, k].
 
-    Rows are equilibrated first (inv(A) = inv(D^-1 A) D^-1 with D the row
-    maxima), so the cofactor products and eliminations stay O(1) whatever
-    the rows' physical scale. `with_count` also returns how many blocks
-    took the Jacobi fallback of `_guard`."""
+    `reg`: a Tikhonov diagonal added first (reg * I; guards against exactly
+    singular blocks). Rows are equilibrated first (inv(A) = inv(D^-1 A)
+    D^-1 with D the row maxima), so the cofactor products and eliminations
+    stay O(1) whatever the rows' physical scale. `with_count` also returns
+    how many blocks took the Jacobi fallback of `_guard`."""
     k = A.shape[-1]
+    if reg:
+        A = A + reg * torch.eye(k, dtype=A.dtype, device=A.device)
     A_orig = A
     s = A.abs().amax(dim=-1, keepdim=True)  # [n, k, 1] row maxima
     s = torch.where((s > 0) & torch.isfinite(s), s, 1.0)

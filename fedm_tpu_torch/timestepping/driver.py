@@ -41,15 +41,20 @@ import torch
 
 from ..constants import DOLFIN_EPS
 from ..model.system import CoupledSystem, StepParams
+from ..solvers.linear import combine_norms
 from .controllers import adaptive_timestep
 
 
 def step_error_norm(var_new: torch.Tensor, var_old: torch.Tensor,
-                    dim=None) -> torch.Tensor:
+                    dim=None, group=None) -> torch.Tensor:
     """Relative l2 step error with the reference's DOLFIN_EPS shift; with
-    `dim`, one per member of a batch (the norms reduce over `dim` only)."""
+    `dim`, one per member of a batch (the norms reduce over `dim` only).
+    Over a `group` (`parallel.ranks`) the vectors are each rank's rows and
+    both norms are combined over the ranks (one all-reduce)."""
     num = torch.linalg.vector_norm(var_new - var_old + DOLFIN_EPS, dim=dim)
-    return num / torch.linalg.vector_norm(var_old + DOLFIN_EPS, dim=dim)
+    den = torch.linalg.vector_norm(var_old + DOLFIN_EPS, dim=dim)
+    num, den = combine_norms(torch.stack([num, den]), group).unbind()
+    return num / den
 
 
 @dataclass
@@ -148,11 +153,15 @@ class AdaptiveDriver:
         raise SystemExit(msg)
 
     def _monitor_error(self, u_new, u_old) -> float:
+        # a distributed system's rows are its rank's: the norms are summed
+        # over its group, so every rank takes the same decisions
+        group = getattr(self.system, "group", None)
         idx = self.monitor_idx
         if isinstance(idx, int):
-            return float(step_error_norm(u_new[:, idx], u_old[:, idx]))
-        return max(float(step_error_norm(u_new[:, i], u_old[:, i]))
-                   for i in idx)
+            return float(step_error_norm(u_new[:, idx], u_old[:, idx],
+                                         group=group))
+        return max(float(step_error_norm(u_new[:, i], u_old[:, i],
+                                         group=group)) for i in idx)
 
     def _log_error(self, err: float, dt_old: float, dt: float) -> None:
         if self.error_log is None:

@@ -341,7 +341,7 @@ def test_a_broken_halo_exchange_fails_the_tolerance(streamer, which):
 
 def test_distinct_devices_raise():
     m = StreamerModel(StreamerConfig(nx=4, ny=6), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="one process per card"):
         m.distribute(["cpu", "meta"])
     with pytest.raises(ValueError):
         m.distribute(["meta", "meta"])

@@ -253,6 +253,58 @@ def test_kernel_runs_on_the_tensors_device(cuda):
                                atol=1e-13 * np.abs(out).max())
 
 
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+
+
+def test_nccl_halo_exchange_on_two_cards(cuda):
+    """The halo fill and reduce of 6 parts on 2 ranks, one per card (NCCL,
+    point to point), equal bit for bit to the stacked exchange of one
+    process on card 0."""
+    _two_cards()
+    from fedm_tpu_torch.parallel import rank_checks, ranks
+
+    spec = dict(cfg=dict(nx=16, ny=24), n_parts=6, seed=5)
+    res = ranks.launch(rank_checks.halo, 2, "cuda", (spec,), timeout=300)
+    assert [o["card"]["device"] for o in res] == ["cuda:0", "cuda:1"]
+    m = StreamerModel(StreamerConfig(**spec["cfg"]), device=cuda)
+    d = m.distribute(["cuda"] * 6)
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((d.n_dofs_dist, 3)),
+                        device=cuda)
+    r = torch.as_tensor(rng.standard_normal((d.n_parts * d.n_ext, 3)),
+                        device=cuda)
+    assert torch.equal(torch.cat([o["fill"] for o in res]),
+                       d._halo_fill(x).cpu())
+    assert torch.equal(torch.cat([o["reduce"] for o in res]),
+                       d._halo_reduce(r).cpu())
+
+
+def test_two_rank_dd_residual(cuda):
+    """The streamer's DD, 4 parts on 2 cards: the float64 residual and the
+    node blocks equal the stacked ones of card 0 bit for bit; K1 on card 1
+    launched on card 1, against its plain version."""
+    _two_cards()
+    from fedm_tpu_torch.parallel import rank_checks, ranks
+
+    spec = dict(model="streamer", cfg=dict(nx=16, ny=24), n_parts=4,
+                k1=True)
+    res = ranks.launch(rank_checks.dd, 2, "cuda", (spec,), timeout=300)
+    m = StreamerModel(StreamerConfig(**spec["cfg"]), device=cuda)
+    d = m.distribute(["cuda"] * 4)
+    s = m.initial_state()
+    p = StepParams(s.t + s.dt, s.dt, s.dt_old)
+    F = d.residual(s.u, s.u, s.u_old1, p).cpu()
+    B = d.operators(s.u, s.u_old1, p).jacobian_blocks(
+        torch.zeros_like(s.u)).cpu()
+    assert torch.equal(torch.cat([o["F"] for o in res]), F)
+    assert torch.equal(torch.cat([o["B"] for o in res]), B)
+    k1 = res[1]["k1"]
+    assert k1["device"] == "cuda:1" and k1["launched"] == 1
+    assert k1["max_abs_err"] <= 1e-13 * k1["scale"]
+
+
 def _window_model(device):
     cfg = StreamerConfig(z_corridor=(8.5e-3, 1e-2, 5e-5),
                          r_corridor=(2e-3, 2e-4), z_tail_cells=(12, 12),

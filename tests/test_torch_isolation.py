@@ -64,7 +64,11 @@ def test_port_source_list_is_complete():
             "fedm_tpu_torch/parallel/sweep.py",
             "fedm_tpu_torch/examples/streamer.py",
             "fedm_tpu_torch/examples/glow_discharge.py",
-            "fedm_tpu_torch/dd_scale.py"} <= names
+            "fedm_tpu_torch/dd_scale.py",
+            "fedm_tpu_torch/parallel/ranks.py",
+            "fedm_tpu_torch/parallel/rank_checks.py",
+            "fedm_tpu_torch/parallel/rank_probe.py",
+            "fedm_tpu_torch/dd_scale_ab.py"} <= names
 
 
 def test_native_source_is_the_ports_own_copy():

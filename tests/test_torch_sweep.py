@@ -30,7 +30,7 @@ from fedm_tpu.parallel import BatchedSweep as JaxSweep
 from fedm_tpu_torch.convert import sweep_state_from_arrays
 from fedm_tpu_torch.model.system import StepParams
 from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel
-from fedm_tpu_torch.parallel import BatchedSweep, SweepState
+from fedm_tpu_torch.parallel import BatchedSweep, SweepState, ranks
 from fedm_tpu_torch.solvers.newton import NewtonInfo, newton_krylov
 
 AMPS = [2e18, 5e18, 1e19]
@@ -210,3 +210,13 @@ def test_batch_sharding(port):
     st = sw.from_states([model.initial_state()] * 2)
     assert st.u.shape[0] == 2 and st.u.device.type == "cpu"
     assert jax.devices()[0].platform == "cpu"
+    # over the ranks of a group (one here): the members are its rank's,
+    # whose card the device list must name
+    with ranks.one_rank("cpu") as g:
+        sw = BatchedSweep(model.system, 1, 1e-3, 1e-15, 5e-12,
+                          batch_sharding=["cpu", "cpu"], group=g)
+        st2 = sw.from_states([model.initial_state()] * 2)
+        assert torch.equal(st2.u, st.u) and sw._members(2) == slice(0, 2)
+        with pytest.raises(ValueError, match="rank 0 runs on cpu"):
+            BatchedSweep(model.system, 1, 1e-3, 1e-15, 5e-12,
+                         batch_sharding=["meta", "meta"], group=g)
