@@ -8,10 +8,12 @@ entry point, the extended reaction scheme under the DOF-partitioned
 domain decomposition with its entry point, the batched parameter sweep,
 the streamer example and the domain decomposition at scale; where the
 machine has two cards or more, the domain decomposition and the sweep on
-distinct cards, one rank (process) each.
+distinct cards, one rank (process) each, and the structured streamer on
+z-slabs, one rank per card.
 
     python3 chip_smoke.py                # every phase; one card needed
-    python3 chip_smoke.py --only cards   # phases 0, 1 and 11 alone
+    python3 chip_smoke.py --only cards   # phases 0, 1, 11 and 12
+    python3 chip_smoke.py --only slabs   # phases 0, 1 and 12 alone
 
 Phases (each reports its elapsed seconds on stderr):
   0. device: a CUDA device must be present, else exit 1 with no result;
@@ -151,6 +153,30 @@ Phases (each reports its elapsed seconds on stderr):
      1e-12, held to the JAX numbers; then `dd_scale --cards
      R` as a process beside the one-card run; every card's name and
      power limit.
+  12. slabs: the structured streamer on z-slabs
+     (`CoupledSystem.use_gspmd`, `fedm_tpu_torch.parallel.slabs`). On
+     every run, right after phase 3: the main path's system on one
+     z-slab over a one-rank group against itself on one card (residual,
+     J v, node blocks, one V-cycle, one z-line solve, one preconditioner
+     application), bit for bit. With two cards or more (else stderr says
+     `phase 12 slabs: R>1 not run, 1 device`), R = min(count, 4) ranks,
+     one per card, in one launch against the same work on card 0: the
+     restart's operators bit for bit (where a probe of the cells' einsum,
+     or for the preconditioner of `block_apply`'s, in the operator's type
+     finds it rounding by the row count, within
+     phase 8's tolerance in float64, 1e-3 and 1e-4 of the largest entry
+     in float32, the gap recorded), a residual without the halo row from
+     below refused; the restart's 1 + 3 advances and the fresh window's
+     forced move and 2 advances held to tools/gspmd_identity.py's
+     identity rule (counts equal, t within 1e-9, fields within rtol
+     5e-4, atol 1e-6), Newton counts equal, Krylov within 25 % or, for
+     the window's advances, the JAX package's own spread, per-advance wall times, K1's launches and
+     the collectives per Krylov iteration per rank, 5 BiCGStab
+     iterations profiled on each rank and on one card (ms, idle share);
+     each one-card reference runs on one rank's card in the same launch;
+     K1 on each electrode rank's card against its plain version;
+     `bagheri_run --preset bagheri14-fullgap --devices R` as a process,
+     2 steps, and with one rank more than the cards (it must fail).
 The glow phase (5) also checks that two V-cycles of one vector, and two
 advances from one state, give the same bits (the unstructured levels
 and the restriction sum through K1's dense form, F3); the options phase
@@ -722,8 +748,17 @@ class DeadlineExceeded(RuntimeError):
     pass
 
 
+_budget = {"s": BUDGET_S}
+
+
+def budget(seconds: int) -> None:
+    """The alarm, `seconds` from now (the phases after it share them)."""
+    _budget["s"] = seconds
+    signal.alarm(seconds)
+
+
 def _on_alarm(signum, frame):
-    raise DeadlineExceeded(f"phase {_phase!r} overran the {BUDGET_S} s "
+    raise DeadlineExceeded(f"phase {_phase!r} overran the {_budget['s']} s "
                            f"budget")
 
 
@@ -3008,6 +3043,453 @@ def cards(k1, count: int, one_card_dd_scale) -> dict:
     return out
 
 
+# -- phase 12: the structured streamer on z-slabs, one rank per card ---------
+
+# the identity rule of tools/gspmd_identity.py:134-136
+SLAB_FIELD_RTOL, SLAB_FIELD_ATOL, SLAB_T_RTOL = 5e-4, 1e-6, 1e-9
+SLAB_RESTART_ADVANCES = 4     # 1 + 3, as phase 3
+SLAB_WINDOW_ADVANCES = 2
+SLAB_PROCESS_STEPS = 2
+# A slab march's Newton and Krylov counts (BiCGStab and GMRES summed) per
+# plan item must equal one card's in the same run or lie inside the port's
+# own spread: one card's counts from the state perturbed before the first
+# advance, those of this run (one card's own, and on every rank's card
+# SLAB_SPREAD_EPS with the rank's seeds: perturbations at the float32
+# type's own rounding, which the ranks' reordered sums make) widened by
+# these: (newton, krylov) ranges per item from `python -m
+# fedm_tpu_torch.parallel.slab_probe --spread restart|window --eps 1e-12
+# 3e-12 1e-11 3e-11 1e-10 --seed 0 1` (one NVIDIA H100 80GB HBM3,
+# 700.00 W: 8 runs each), the window's with the JAX package's own
+# (ROADMAP.md section 3: the first advance after the move 71-739 Krylov,
+# 2-3 Newton; the second 50-684)
+SLAB_SPREAD = {
+    "restart": {0: ((2, 2), (4, 5)), 1: ((2, 2), (4, 5)),
+                2: ((2, 2), (4, 4)), 3: ((2, 2), (4, 5))},
+    "window": {1: ((2, 3), (56, 1061)), 2: ((2, 3), (50, 843))}}
+SLAB_SPREAD_EPS = (1e-8, 1e-7)
+SLAB_LAUNCH_S = 420
+SLAB_PROFILED_ITERS = 5       # BiCGStab iterations of M J under the profiler
+SLAB_PROCESS_S = 300
+SLAB_PROBE_S = 400
+# phase 12's own budget (on four cards, after phase 11's CARDS_BUDGET_S)
+SLABS_BUDGET_S = 480
+# the operators of job 1 (`rank_checks.ops_record`)
+SLAB_OPS = ("F", "F64", "Jv", "B", "V", "zline", "M")
+
+
+def slab_specs() -> tuple:
+    """Phase 12's model specs (`rank_checks.slab_model`): the restart
+    (bench.py's configuration from the checkpoint) for the operators and
+    for the identity protocol's 1 + 3 advances, and the fresh window
+    (bagheri14 without its single-card direct rescue) from t = 0 through
+    one forced move and 2 advances."""
+    from fedm_tpu_torch import gspmd_identity
+
+    restart = gspmd_identity.spec_for(CKPT, SLAB_RESTART_ADVANCES)
+    ops = {k: restart[k] for k in ("cfg", "newton", "float32", "ckpt")}
+    ops["profile_iters"] = SLAB_PROFILED_ITERS
+    window = {"bagheri_argv": ["--preset", "bagheri14",
+                               "--no-direct-rescue"],
+              "corridor": REF_WINDOW["corridor"],
+              "plan": [("move", REF_WINDOW["moved_to"])]
+              + ["advance"] * SLAB_WINDOW_ADVANCES,
+              "driver": {"fail_dt_cap": 0.7, "predictor": 1.0}}
+    return ops, restart, window
+
+
+def slabs_one_rank(model, state) -> dict:
+    """Phase 12 on one card: the main path's system (phase 3's model, at
+    its last state) against itself on z-slabs over a one-rank group: the
+    residual, J v, node blocks, one V-cycle, one z-line solve and one
+    preconditioner application, bit for bit."""
+    from fedm_tpu_torch.parallel import rank_checks, ranks
+    from fedm_tpu_torch.solvers.linesmoother import ZLineSmoother
+
+    t = time.perf_counter()
+    spec = {"seed": 5}
+    sm = ZLineSmoother(model.system.masked_stiffness_op(2),
+                       model._node_grid(model.space), model.space.n_dofs,
+                       n_iter=2, dtype=model.batch.dtype, device="cuda")
+    plain = rank_checks.ops_record(model, state, None, spec, sm)
+    with ranks.one_rank("cuda") as group:
+        slab = rank_checks.ops_record(model, state, group, spec, sm)
+    out = {"bitwise": {k: torch.equal(slab[k], plain[k]) for k in SLAB_OPS},
+           "rows": slab["rows"], "s": time.perf_counter() - t}
+    log(f"slabs: one rank against one card: {out}")
+    check(all(out["bitwise"].values()), f"the main path on one z-slab "
+                                        f"differs from one card: {out}")
+    return out
+
+
+def _slab_rows(res, key) -> torch.Tensor:
+    return torch.cat([r[key] for r in res])
+
+
+def start_slab_probe() -> dict:
+    """`python -m fedm_tpu_torch.parallel.slab_probe --case restart` on
+    card 0, its tensors saved: job 1's ranks emulated as threads on one
+    card (each at its own counts, no value crossing a card), and where
+    their operators leave one card's, the op that does it."""
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_slabs_"))
+    with open(tmp / "stdout", "w") as so, open(tmp / "stderr", "w") as se:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fedm_tpu_torch.parallel.slab_probe",
+             "--case", "restart", "--device", "cuda:0", "--save",
+             str(tmp / "probe.pt")], stdout=so, stderr=se, cwd=ROOT,
+            start_new_session=True)
+    return {"proc": proc, "tmp": tmp, "t0": time.perf_counter()}
+
+
+def slab_probe_result(job: dict) -> dict:
+    """`start_slab_probe`'s report and tensors (it must exit 0)."""
+    proc = job["proc"]
+    try:
+        try:
+            proc.wait(timeout=max(1.0, SLAB_PROBE_S
+                                  - (time.perf_counter() - job["t0"])))
+        except subprocess.TimeoutExpired:
+            pass
+        check(proc.poll() == 0, f"the slab probe failed (rc {proc.poll()}): "
+                                f"{(job['tmp'] / 'stderr').read_text()[-2000:]}")
+        return torch.load(job["tmp"] / "probe.pt", weights_only=False)
+    finally:
+        stop_slab_process(job)
+
+
+def _slab_ops_vs_one(res, plain, emu, fail) -> dict:
+    """Job 1: the ranks' rows of every operator against one card's, and
+    against the same ranks emulated on one card (`emu`, the slab probe's).
+    The ranks equal their emulation bit for bit (the cards move values
+    only); they equal one card bit for bit, or the probe shows their
+    difference to be count rounding alone (`emu["exempt"]`: the first op
+    off is a batched GEMM at equal inputs, or M's `block_apply`) and they
+    hold per column (`slab_probe.judge`). Controls that must fail that
+    hold: the residual without the halo row from below, the same in its
+    Poisson row alone, every operator's one-card result rounded to
+    bfloat16, and for the float64 defect the float32 residual (computed in
+    the lower precision). Failures go to `fail(ok, msg)`."""
+    from fedm_tpu_torch.parallel.slab_probe import anchor_of, judge
+
+    got = {k: _slab_rows(res, k) for k in SLAB_OPS}
+    emu_got = {k: _slab_rows(emu["_ranks"], k) for k in SLAB_OPS}
+    out = {"rows": [r["rows"] for r in res],
+           "bitwise": {k: torch.equal(got[k], plain[k]) for k in SLAB_OPS},
+           "emulated_bitwise": {k: torch.equal(got[k], emu_got[k])
+                                for k in SLAB_OPS},
+           "one_card_cards_bitwise": {k: torch.equal(plain[k],
+                                                     emu["_one"][k])
+                                      for k in SLAB_OPS},
+           "exempt": emu["exempt"],
+           "first_differing_ops": {key: [[b["ops"].get("op") for b in r]
+                                         for r in v]
+                                   for key, v in emu["kernels"].items()},
+           "M_parts": emu["M_parts"], "held": {}}
+
+    def held(k, x):
+        return judge(x, plain[k], anchor_of(k, plain))
+
+    for k in SLAB_OPS:
+        out["held"][k] = held(k, got[k])
+    control = _slab_rows(res, "control_F")
+    poisson = got["F"].clone()
+    poisson[:, 2] = control[:, 2]
+    out["controls"] = {
+        "dropped_row": held("F", control),
+        "dropped_row_poisson_only": held("F", poisson),
+        "float32_as_float64": held("F64", plain["F"].double()),
+        "bfloat16": {k: held(k, plain[k].to(torch.bfloat16))
+                     for k in SLAB_OPS}}
+    log(f"slabs: operators {out}")
+    fail(all(out["emulated_bitwise"].values())
+         and all(out["one_card_cards_bitwise"].values()),
+         f"slabs: the ranks' operators differ from the same ranks emulated "
+         f"on one card, or one card's from another's: {out}")
+    for k in SLAB_OPS:
+        fail(out["bitwise"][k] or (out["exempt"][k] and out["held"][k]["ok"]),
+             f"slabs: {k} on {len(res)} ranks differs from one card's: "
+             f"{out}")
+    c = out["controls"]
+    fail(not any(v["ok"] for v in (c["dropped_row"],
+                                   c["dropped_row_poisson_only"],
+                                   c["float32_as_float64"]))
+         and not any(v["ok"] for v in c["bfloat16"].values()),
+         f"slabs: a control passes: {c}")
+    return out
+
+
+def _krylov(row) -> int:
+    return row["bicgstab_iterations"] + row["gmres_iterations"]
+
+
+def _slab_march_vs_one(name, one, many, fail, spread, live) -> dict:
+    """Jobs 2-3: the ranks' march against one card's: accepted and
+    rejected counts equal, t within SLAB_T_RTOL, the fields within the
+    identity rule, and per plan item the Newton and Krylov counts equal to
+    one card's or inside the port's spread: `spread` {item: ((lo, hi) of
+    Newton, of Krylov)} (SLAB_SPREAD) widened to one card's own and to
+    `live`, this run's perturbed one-card marches (`krylov_spread`'s).
+    Failures go to `fail(ok, msg)`."""
+    r1, rR = one["rows"], many[0]["rows"]
+    keys = ("n_accepted", "n_rejected", "newton_iterations",
+            "bicgstab_iterations", "gmres_iterations")
+    u1, uR = one["u"].double(), many[0]["u"].double()
+    ok_fields = bool(torch.allclose(uR, u1, rtol=SLAB_FIELD_RTOL,
+                                    atol=SLAB_FIELD_ATOL))
+    pairs = [((a["newton_iterations"], _krylov(a)),
+              (b["newton_iterations"], _krylov(b))) for a, b in zip(rR, r1)]
+    iters = sum(a[1] for a, _ in pairs)
+    coll = collections.Counter()
+    for row in rR:
+        coll.update(row["collectives"])
+    ranges = {}
+    for i, (_, b) in enumerate(pairs):
+        seen = [b] + [(run["newton"][i], run["krylov"][i]) for run in live]
+        lo_hi = spread.get(i, ((b[0], b[0]), (b[1], b[1])))
+        ranges[i] = tuple((min([lo_hi[q][0]] + [x[q] for x in seen]),
+                           max([lo_hi[q][1]] + [x[q] for x in seen]))
+                          for q in (0, 1))
+    out = {"counts": [{k: row[k] for k in keys} for row in rR],
+           "one_card_counts": [{k: row[k] for k in keys} for row in r1],
+           "newton_krylov": pairs, "spread": ranges,
+           "live_spread": [{"eps": run["eps"], "seed": run["seed"],
+                            "newton": run["newton"], "krylov": run["krylov"]}
+                           for run in live],
+           "t": [row["t"] for row in rR],
+           "t_rel": max(abs(a["t"] - b["t"]) / b["t"] for a, b in zip(rR, r1)
+                        if b["t"] > 0),
+           "max_rel_field_dev": float(((uR - u1).abs()
+                                       / (u1.abs() + 1e-12)).max()),
+           "fields_ok": ok_fields,
+           "rank_s": [[row["s"] for row in m["rows"]] for m in many],
+           "one_card_s": [row["s"] for row in r1],
+           "k1_launches": [sum(row["k1_launches"] for row in m["rows"])
+                           for m in many],
+           "one_card_k1_launches": sum(row["k1_launches"] for row in r1),
+           "collectives": dict(coll),
+           "collectives_per_krylov_iteration": {
+               k: v / max(iters, 1) for k, v in coll.items()},
+           "finite": bool(torch.isfinite(uR).all())}
+    log(f"slabs: {name}: {out}")
+    keys = ("n_accepted", "n_rejected")
+    for a, b in zip(rR, r1):
+        fail(all(a[k] == b[k] for k in keys),
+             f"slabs: {name}: counts {[a[k] for k in keys]} differ from "
+             f"one card's {[b[k] for k in keys]}")
+    fail(all(a[q] == b[q] or ranges[i][q][0] <= a[q] <= ranges[i][q][1]
+             for i, (a, b) in enumerate(pairs) for q in (0, 1)),
+         f"slabs: {name}: Newton and Krylov counts {pairs} (ranks, one "
+         f"card) outside the port's spread {ranges}")
+    fail(all(abs(a["t"] - b["t"]) <= SLAB_T_RTOL * abs(b["t"])
+             for a, b in zip(rR, r1)), f"slabs: {name}: t off one card's")
+    fail(ok_fields and out["finite"], f"slabs: {name}: the fields leave "
+                                      f"one card's: {out}")
+    return out
+
+
+def _same_rows(a: list, b: list) -> list:
+    """Per plan item, whether two marches' records agree but for the wall
+    time and the collectives."""
+    skip = ("s", "collectives")
+    return [{k: v for k, v in x.items() if k not in skip}
+            == {k: v for k, v in y.items() if k not in skip}
+            for x, y in zip(a, b)]
+
+
+def start_slab_process(R: int) -> dict:
+    """Job 4 started: `python -m fedm_tpu_torch.bagheri_run --preset
+    bagheri14-fullgap --devices R` as a process in a session of its own,
+    SLAB_PROCESS_STEPS steps on the full-gap mesh, its output in files
+    (it runs beside the launch of jobs 1-3, on the same cards)."""
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_slabs_"))
+    cmd = [sys.executable, "-m", "fedm_tpu_torch.bagheri_run", "--preset",
+           "bagheri14-fullgap", "--devices", str(R), "--max-steps",
+           str(SLAB_PROCESS_STEPS), "--report-every", "1", "--out",
+           str(tmp / "out")]
+    with open(tmp / "stdout", "w") as so, open(tmp / "stderr", "w") as se:
+        proc = subprocess.Popen(cmd, stdout=so, stderr=se, cwd=ROOT,
+                                start_new_session=True)
+    return {"proc": proc, "tmp": tmp, "t0": time.perf_counter()}
+
+
+def stop_slab_process(job: dict) -> None:
+    """Kill job 4's session (its ranks too) if it still runs."""
+    import shutil
+
+    proc = job["proc"]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    shutil.rmtree(job["tmp"], ignore_errors=True)
+
+
+def slab_process(job: dict, R: int, fail) -> dict:
+    """Job 4 waited for (`start_slab_process`, at most SLAB_PROCESS_S from
+    its start): rc 0, rank 0's report, a finite state; then one rank more
+    than the cards, which must be refused."""
+    import shutil
+    import tempfile
+
+    from fedm_tpu_torch.io import load_checkpoint
+
+    proc, tmp = job["proc"], job["tmp"]
+    try:
+        try:
+            proc.wait(timeout=max(1.0, SLAB_PROCESS_S
+                                  - (time.perf_counter() - job["t0"])))
+        except subprocess.TimeoutExpired:
+            pass
+        wall = time.perf_counter() - job["t0"]
+        text = (tmp / "stdout").read_text()
+        err = (tmp / "stderr").read_text()
+        check(proc.poll() == 0, f"bagheri_run --devices {R} failed "
+                                f"(rc {proc.poll()}, {wall:.1f} s): "
+                                f"{err[-2000:]}")
+        log("slabs: bagheri_run: " + " | ".join(text.strip().splitlines()))
+        st = load_checkpoint(tmp / "out" / "checkpoint.npz", device="cpu")
+        mesh = re.search(r"mesh: (\d+) dofs \((\d+) unknowns\)", text)
+        out = {"process_s": wall, "rc": proc.returncode,
+               "unknowns": int(mesh[2]) if mesh else None,
+               "reports": len(re.findall(r"^t=", text, re.M)),
+               "n_accepted": st.n_accepted, "t": st.t,
+               "finite": bool(torch.isfinite(st.u).all())}
+    finally:
+        stop_slab_process(job)
+    log(f"slabs: bagheri_run --devices {R}: {out}")
+    fail(out["finite"] and out["n_accepted"] == SLAB_PROCESS_STEPS
+         and out["reports"] >= SLAB_PROCESS_STEPS and "STOPPED" in text,
+         f"bagheri_run --devices {R}: {out}")
+    # more ranks than cards: refused before any rank starts
+    n = torch.cuda.device_count() + 1
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slabs_")
+    try:
+        over = _run_group(
+            [sys.executable, "-m", "fedm_tpu_torch.bagheri_run", "--preset",
+             "bagheri14-fullgap", "--devices", str(n), "--out", tmp], 120)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["more_ranks_than_cards"] = {"devices": n, "rc": over.returncode}
+    log(f"slabs: bagheri_run --devices {n}: rc {over.returncode}")
+    fail(over.returncode != 0 and "CUDA devices, one each" in over.stderr,
+         f"bagheri_run --devices {n} on {n - 1} cards did not raise: "
+         f"{over.stderr[-1000:]}")
+    return out
+
+
+def slabs(k1, count: int) -> dict:
+    """Phase 12 on R = min(count, 4) cards: the structured streamer on
+    z-slabs, one rank per card (NCCL), against one card (each reference
+    run on one rank's card alone, in the same launch, after the slab
+    jobs): the restart's operators bit for bit or, where the slab probe
+    shows count rounding alone, held per column (job 1), the restart's
+    1 + 3 advances (job 2) and the fresh window's move and 2 advances
+    (job 3) by the identity rule with the counts in the port's spread,
+    `bagheri_run --devices R` as a process (job 4, beside the launch);
+    K1 on each electrode rank's card against its plain version; the
+    window on one slab of a one-rank group bit for bit with one card."""
+    from fedm_tpu_torch.parallel import rank_checks, ranks
+
+    R = min(count, 4)
+    ops_spec, restart_spec, window_spec = slab_specs()
+    # the one-card references run in the same launch, after the slab
+    # jobs, each on one rank's card alone (no group), in parallel; so does
+    # the window on one slab of a one-rank group (rank 0), which must
+    # march as one card does, bit for bit
+    refs = [("plain_ops", "slab_ops", ops_spec),
+            ("plain_restart", "slab_march", restart_spec),
+            ("plain_window", "slab_march", window_spec),
+            ("one_rank_window", "slab_march_one_rank", window_spec)]
+    # then every rank marches the restart on its card from the state
+    # perturbed at float32's rounding, its own seeds: this run's spread
+    jobs = ([("ops", "slab_ops", ops_spec),
+             ("restart", "slab_march", restart_spec),
+             ("window", "slab_march", window_spec)]
+            + [(key, "on_one_rank", {"rank": (i + 1) % R, "worker": name,
+                                     "spec": spec})
+               for i, (key, name, spec) in enumerate(refs)]
+            + [("restart_spread", "krylov_spread",
+                {**restart_spec, "before": 0,
+                 "perturbations": [(e, 0) for e in SLAB_SPREAD_EPS]})])
+    # job 4 and the slab probe run beside the launch, on the same cards
+    job4, probe = start_slab_process(R), start_slab_probe()
+    t = time.perf_counter()
+    try:
+        res = ranks.launch(rank_checks.several, R, "cuda", (jobs,),
+                           timeout=SLAB_LAUNCH_S)
+        emu = slab_probe_result(probe)
+    except BaseException:
+        stop_slab_process(job4)
+        stop_slab_process(probe)
+        raise
+    out = {"ranks": R, "launch_s": time.perf_counter() - t}
+    one = {key: next(r[key] for r in res if r[key] is not None)
+           for key, _, _ in refs}
+    plain = one["plain_ops"]
+    out["reference_cards"] = [one[key]["card"]["device"]
+                              for key, _, _ in refs]
+    out["probe"] = {k: v for k, v in emu.items() if not k.startswith("_")}
+    log(f"slabs: the ranks emulated on one card (slab probe, "
+        f"{emu['s']:.1f} s): {out['probe']}")
+    # every job is compared and logged; the phase fails at its end on the
+    # first failures, all of them reported
+    failures = []
+
+    def fail(ok, msg):
+        if not ok:
+            log(f"slabs: FAILED CHECK: {msg}")
+            failures.append(msg)
+
+    devices = [r["ops"]["card"]["device"] for r in res]
+    fail(devices == [f"cuda:{q}" for q in range(R)]
+         and len({r["ops"]["card"].get("uuid") for r in res}) == R,
+         f"the slab ranks did not run on {R} distinct cards: {devices}")
+    out["krylov"] = {"one_card": plain["krylov"],
+                     "ranks": [r["ops"]["krylov"] for r in res]}
+    log(f"slabs: {SLAB_PROFILED_ITERS} BiCGStab iterations of M J, one card "
+        f"and each rank: {out['krylov']}")
+    out["ops"] = _slab_ops_vs_one([r["ops"] for r in res], plain, emu,
+                                  fail)
+    k1s = [r["ops"].get("k1") for r in res]
+    out["k1_ranks"] = k1s
+    log(f"slabs: K1 on the ranks' facet tables: {k1s}")
+    fail(any(k is not None for k in k1s)
+         and all(k is None or (k["launched"] == 1
+                               and k["device"] == f"cuda:{q}"
+                               and k["max_abs_err"] <= 1e-5 * k["scale"])
+                 for q, k in enumerate(k1s)),
+         f"K1 on the electrode ranks' cards against its plain version: "
+         f"{k1s}")
+    out["restart"] = _slab_march_vs_one(
+        f"restart, {SLAB_RESTART_ADVANCES} advances on {R} ranks",
+        one["plain_restart"], [r["restart"] for r in res], fail,
+        SLAB_SPREAD["restart"],
+        [run for r in res for run in r["restart_spread"]])
+    out["window"] = _slab_march_vs_one(
+        f"window, move and {SLAB_WINDOW_ADVANCES} advances on {R} ranks",
+        one["plain_window"], [r["window"] for r in res], fail,
+        SLAB_SPREAD["window"], [])
+    w1, wp = one["one_rank_window"], one["plain_window"]
+    out["one_rank_window"] = {
+        "card": w1["card"]["device"],
+        "u_equal": torch.equal(w1["u"], wp["u"]),
+        "rows_equal": _same_rows(w1["rows"], wp["rows"]),
+        "s": [row["s"] for row in w1["rows"]]}
+    log(f"slabs: the window on one slab of a one-rank group against one "
+        f"card: {out['one_rank_window']}")
+    fail(out["one_rank_window"]["u_equal"]
+         and all(out["one_rank_window"]["rows_equal"]),
+         f"slabs: the window on one slab of a one-rank group differs from "
+         f"one card's: {out['one_rank_window']}")
+    del res
+    out["process"] = slab_process(job4, R, fail)
+    check(not failures, f"slabs: {len(failures)} checks failed: "
+                        f"{failures}")
+    return out
+
+
 def _cards_launches(out: dict) -> dict:
     """K1's launches in phase 11, per rank: the extended and the
     streamer's distributed steps, the sweep's attempts; dd_scale's."""
@@ -3017,34 +3499,121 @@ def _cards_launches(out: dict) -> dict:
             "dd_scale": out["dd_scale"]["k1_launches"]}
 
 
-def cards_only(k1, kind: str, count: int, card: str) -> int:
-    """`--only cards`: phase 11 alone (after phases 0 and 1), with K1's
-    row from its stacked table on card 0."""
-    phase("11 cards")
-    check(count >= 2, f"--only cards needs two or more cards ({count})")
-    out = cards(k1, count, None)
+def _slab_launches(out: dict) -> dict:
+    """K1's launches in phase 12, per rank: the restart's advances and the
+    window's move and advances."""
+    return {"restart": out["restart"]["k1_launches"],
+            "window": out["window"]["k1_launches"]}
+
+
+def cards_only(k1, kind: str, count: int, card: str, only: str) -> int:
+    """`--only cards` (phase 11, then phase 12) or `--only slabs` (phase
+    12 alone), after phases 0 and 1; K1's row from phase 11's stacked
+    table on card 0, or from phase 12's electrode ranks."""
+    check(count >= 2, f"--only {only} needs two or more cards ({count})")
+    out = slab_out = None
+    if only == "cards":
+        # phase 12 runs beside phase 11, as `--only slabs` in a process of
+        # its own (its own budget, its own ranks), on the same cards: each
+        # phase waits mostly on its ranks' hosts
+        child = start_slabs_child()
+        try:
+            phase("11 cards")
+            budget(CARDS_BUDGET_S)
+            out = cards(k1, count, None)
+            phase("12 slabs")
+            budget(SLABS_BUDGET_S)
+            slab_out = wait_slabs_child(child)
+        finally:
+            stop_slab_process(child)
+    else:
+        phase("12 slabs")
+        budget(SLABS_BUDGET_S)
+        slab_out = slabs(k1, count)
     signal.alarm(0)
-    case = out["k1_case"]
-    launches = _cards_launches(out)
+    launches = {} if out is None else {"cards": _cards_launches(out)}
+    launches["slabs"] = _slab_launches(slab_out)
+    n = sum(sum(v) if isinstance(v, list) else v
+            for path in launches.values() for v in path.values())
+    if out is not None:
+        case = out["k1_case"]
+        err = max(case["max_abs_err"],
+                  out["extended"]["k1_rank1"]["max_abs_err"])
+    else:
+        case = None
+        err = 0.0
+    err = max([err] + [k["max_abs_err"] for k in slab_out["k1_ranks"]
+                       if k is not None])
+    if case is None:
+        # K1 timed at the electrode facets' table of the main path
+        case = slab_k1_case(k1)
     kernels = [{
         "name": "ell_scatter", "route": "cuda",
         "source": "fedm_tpu_torch/csrc/ell_scatter.cu",
         "replaces": "fedm_tpu/ops/pallas_scatter.py:34",
-        "launches": (sum(launches["extended"]) + sum(launches["streamer"])
-                     + sum(launches["sweep"]) + launches["dd_scale"]),
-        "launches_by_path": launches,
-        "max_abs_err": max(case["max_abs_err"],
-                           out["extended"]["k1_rank1"]["max_abs_err"]),
+        "launches": n, "launches_by_path": launches,
+        "max_abs_err": max(err, case["max_abs_err"]),
         "ms": case["ms"], "plain_ms": case["plain_ms"],
         "bound_ms": case["bound_ms"], "bound_by": "bytes",
         "library_ms": case["library_ms"], "floor_ms": case["floor_ms"],
         "event_timed": devtime.event_fallbacks, "cases": [case]}]
-    print(json.dumps({"kernels": kernels, "cards": out}, default=str))
-    for line in out["cards"]:
+    print(json.dumps({"kernels": kernels, "cards": out, "slabs": slab_out},
+                     default=str))
+    for line in _smi_lines():
         print(line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))
     return 0
+
+
+def start_slabs_child() -> dict:
+    """`python3 chip_smoke.py --only slabs` started in a session of its
+    own, its output in files (`stop_slab_process` ends it)."""
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_slabs_"))
+    with open(tmp / "stdout", "w") as so, open(tmp / "stderr", "w") as se:
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                 "--only", "slabs"], stdout=so, stderr=se,
+                                cwd=ROOT, start_new_session=True)
+    log(f"phase 12 slabs started beside phase 11 (pid {proc.pid})")
+    return {"proc": proc, "tmp": tmp, "t0": time.perf_counter()}
+
+
+def wait_slabs_child(child: dict) -> dict:
+    """Phase 12's results from `start_slabs_child`'s process: its log
+    copied to this one's, its exit code 0, its results line read."""
+    proc = child["proc"]
+    try:
+        proc.wait(timeout=max(1.0, BUDGET_S + SLABS_BUDGET_S
+                              - (time.perf_counter() - child["t0"])))
+    except subprocess.TimeoutExpired:
+        pass
+    err = (child["tmp"] / "stderr").read_text()
+    for line in err.splitlines():
+        print(f"  | {line}", file=sys.stderr)
+    sys.stderr.flush()
+    check(proc.poll() == 0, f"phase 12 (--only slabs) failed, rc "
+                            f"{proc.poll()}: {err[-3000:]}")
+    text = (child["tmp"] / "stdout").read_text()
+    line = next(x for x in text.splitlines() if x.startswith('{"kernels"'))
+    return json.loads(line)["slabs"]
+
+
+def slab_k1_case(k1) -> dict:
+    """K1's compact form at the main path's electrode facet table (C = 3,
+    float32), timed against its plain version (`--only slabs`)."""
+    from fedm_tpu_torch.parallel import rank_checks
+
+    model = rank_checks.slab_model(slab_specs()[0], torch.device("cuda"))
+    fb = model.system.facet_kernels[0][0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flat = torch.randn((fb.dofs.numel(), 3), generator=gen, device="cuda")
+    flush = l2_flush()
+    return k1_compact_case("facet compact C=3 float32", fb.scatter_rows,
+                           fb.scatter_idx, fb.gather_idx,
+                           fb.dofs.reshape(-1).long(), flat,
+                           model.space.n_dofs, k1, gen, flush)
 
 
 def main() -> int:
@@ -3052,16 +3621,16 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="the port's smoke test on "
                                              "the card(s)")
-    ap.add_argument("--only", choices=["cards"], default=None,
-                    help="run phases 0, 1 and 11 alone (the multi-card "
-                         "check)")
+    ap.add_argument("--only", choices=["cards", "slabs"], default=None,
+                    help="cards: phases 0, 1, 11 and 12 (the multi-card "
+                         "checks); slabs: phases 0, 1 and 12 alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
     signal.signal(signal.SIGALRM, _on_alarm)
-    signal.alarm(BUDGET_S)
+    budget(BUDGET_S)
 
     phase("0 device")
     kind = torch.cuda.get_device_name(0)
@@ -3088,8 +3657,8 @@ def main() -> int:
         if "ptxas" in line:
             log(line.strip())
 
-    if args.only == "cards":
-        return cards_only(k1, kind, count, card)
+    if args.only is not None:
+        return cards_only(k1, kind, count, card, args.only)
 
     phase("2 K1 vs plain")
     from fedm_tpu_torch.fem.assembly import build_ell_index
@@ -3230,6 +3799,11 @@ def main() -> int:
 
     unknowns = n_dofs * model.n_eq
 
+    # the main path's system on one z-slab (the one-card part of phase 12;
+    # the model is done with: use_gspmd leaves it on the slab)
+    phase("12 slabs")
+    slabs_one = slabs_one_rank(model, state)
+
     phase("4 fresh window")
     del model, driver, state
     window, wmodel, moved = fresh_window(k1, card)
@@ -3267,8 +3841,16 @@ def main() -> int:
         print(f"11 cards: not run, {count} device", file=sys.stderr,
               flush=True)
     else:
-        signal.alarm(CARDS_BUDGET_S)
+        budget(CARDS_BUDGET_S)
         cards_out = cards(k1, count, dd_out)
+    phase("12 slabs")
+    slabs_out = None
+    if count < 2:
+        print(f"phase 12 slabs: R>1 not run, {count} device",
+              file=sys.stderr, flush=True)
+    else:
+        budget(SLABS_BUDGET_S)
+        slabs_out = slabs(k1, count)
     signal.alarm(0)
     option_launches = collections.Counter()
     for rec in options_out["advance"].values():
@@ -3288,7 +3870,10 @@ def main() -> int:
                      + sum(tof_out["2d_launches"].values())
                      + sum(ext_out["launches"].values())
                      + sum(sweep_out["launches"].values())
-                     + dd_out["k1_launches"]),
+                     + dd_out["k1_launches"]
+                     + (0 if slabs_out is None else sum(
+                         sum(v) for v in
+                         _slab_launches(slabs_out).values()))),
         "launches_by_path": {"restart": launches,
                              "fresh_window": window["launches"],
                              "rescue": rescue_out["launches"],
@@ -3300,7 +3885,9 @@ def main() -> int:
                              "sweep": sweep_out["launches"],
                              "dd_scale": dd_out["k1_launches"],
                              "cards": (None if cards_out is None
-                                       else _cards_launches(cards_out))},
+                                       else _cards_launches(cards_out)),
+                             "slabs": (None if slabs_out is None
+                                       else _slab_launches(slabs_out))},
         "sweep_launches_by_shape": sweep_out["launches_by_shape"],
         "extended_launches_by_shape":
             ext_out["distributed_step"]["launches_by_shape"],
@@ -3331,7 +3918,9 @@ def main() -> int:
         "options": options_out,
         "tof": tof_out, "extended": ext_out, "sweep": sweep_out,
         "streamer_example": example_out, "dd_scale": dd_out,
-        "cards": cards_out, "depth": _depth}))
+        "cards": cards_out, "slabs": {"one_rank": slabs_one,
+                                      "cards": slabs_out},
+        "depth": _depth}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -17,7 +17,14 @@ z-lines (--tzline) and row equilibration (--row-scaled); periodic
 checkpoints that carry the window's geometry and the protocol in their
 meta; `relative error.log` and `newton.log` in DIR.
 
---devices > 1 (multi-GPU) is refused: it comes with ROADMAP.md slice 12.
+--devices N (N > 1) runs N ranks, one per card (`parallel.ranks`: NCCL on
+CUDA, gloo ranks with --device cpu), the model and its float64 escalation
+model on z-slabs (`CoupledSystem.use_gspmd`, `parallel.slabs`), as the JAX
+tool shards them over N chips; rank 0 prints the reports and writes the
+checkpoints (the gathered state) and the logs, and a resume reads the
+checkpoint on every rank and keeps each rank's rows. More ranks than cards
+raise; --direct-rescue stays single-card, as in the JAX tool, and --precond
+mg has no z-slab form (NotImplementedError; ROADMAP.md section 1).
 As in the JAX tool, --f64 runs on the static --full-gap mesh only, not
 with a moving window, and a window moves only under the structured
 --precond mg-zline.
@@ -166,8 +173,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="static full-gap corridor at --window-dz (no "
                          "window moves)")
     ap.add_argument("--devices", type=int, default=1,
-                    help="devices to shard over (only 1 is ported: "
-                         "ROADMAP.md slice 12)")
+                    help="cards to run on, one rank each, the state in "
+                         "z-slabs (with --device cpu: gloo ranks)")
     return ap
 
 
@@ -190,9 +197,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     if not 0.0 <= args.accept_reduction < 1.0:
         ap.error(f"--accept-reduction must be in [0, 1): "
                  f"{args.accept_reduction}")
-    if args.devices > 1:
-        ap.error("not ported yet: --devices > 1 (multi-GPU) comes with "
-                 "ROADMAP.md slice 12")
+    if args.devices < 1:
+        ap.error(f"--devices must be at least 1: {args.devices}")
+    if args.devices > 1 and args.direct_rescue:
+        ap.error("--direct-rescue is single-card (as in the JAX tool): pass "
+                 "--no-direct-rescue with --devices > 1")
     if args.direct_rescue and not (args.no_fallback or args.f64):
         ap.error("--direct-rescue replaces the float64 escalation: pass "
                  "--no-fallback (or --f64)")
@@ -269,11 +278,13 @@ def build_models(args: argparse.Namespace, corridor: tuple):
     return model, fallback
 
 
-def build_driver(args: argparse.Namespace, model, fallback=None):
+def build_driver(args: argparse.Namespace, model, fallback=None,
+                 logs: bool = True):
     """The run's adaptive driver, writing `relative error.log`,
-    `newton.log` and, on a dt_min death, `crash.npz` into --out; its
-    fallback is the direct rescue with --direct-rescue, else the float64
-    model's system, if any."""
+    `newton.log` and, on a dt_min death, `crash.npz` into --out (with
+    `logs`; on z-slabs rank 0 writes them); its fallback is the direct
+    rescue with --direct-rescue, else the float64 model's system, if
+    any."""
     from .solvers.direct import DirectNewton
     from .timestepping import AdaptiveDriver
 
@@ -284,12 +295,13 @@ def build_driver(args: argparse.Namespace, model, fallback=None):
     return AdaptiveDriver(
         model.system, monitor_idx=1, ttol=model.cfg.ttol,
         dt_min=model.cfg.dt_min, dt_max=model.cfg.dt_max,
-        error_log=args.out / "relative error.log",
+        error_log=args.out / "relative error.log" if logs else None,
         fallback_system=fallback_system,
-        crash_checkpoint=args.out / "crash.npz",
+        crash_checkpoint=args.out / "crash.npz" if logs else None,
         post_accept=model.floor_projection(), verbose=args.verbose,
         fail_dt_cap=args.fail_dt_cap, predictor=args.predictor,
-        newton_log=args.out / "newton.log", floor_atol=args.floor_atol)
+        newton_log=args.out / "newton.log" if logs else None,
+        floor_atol=args.floor_atol)
 
 
 def main(argv=None) -> int:
@@ -298,10 +310,36 @@ def main(argv=None) -> int:
     protocol = {k: (str(v) if isinstance(v, Path) else v)
                 for k, v in sorted(vars(args).items())}
     print(f"protocol: {json.dumps(protocol)}", flush=True)
+    if args.devices == 1:
+        return run(None, args, protocol)
+    if args.precond == "mg":
+        raise NotImplementedError(
+            "--precond mg (the unstructured multigrid) has no z-slab form: "
+            "--devices > 1 takes mg-zline or zline (ROADMAP.md section 1)")
+    from .parallel import ranks
 
+    ranks.ranked(run, args.devices, args.device, (args, protocol))
+    return 0
+
+
+def run(group, args: argparse.Namespace, protocol: dict) -> int:
+    """The run on one card (`group` None), or this rank's part of it on
+    z-slabs over `group` (`parallel.ranks.Group`): every rank steps its
+    rows and takes the same decisions; rank 0 prints and writes."""
     from .io.checkpoint import load_checkpoint, save_checkpoint
     from .models.streamer import z_coords
-    from .timestepping import restart_bdf_history
+    from .timestepping import TimeState, restart_bdf_history
+
+    lead = group is None or group.rank == 0
+    if group is not None:
+        args = argparse.Namespace(**{**vars(args),
+                                     "device": str(group.device)})
+        if not lead:   # rank 0 writes the logs
+            args = argparse.Namespace(**{**vars(args), "verbose": False})
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, flush=True)
 
     window = args.window_dz is not None
     span = args.window_span
@@ -331,18 +369,24 @@ def main(argv=None) -> int:
     else:
         corridor = (0.0, 1.08e-2, args.dz)
     model, fallback = build_models(args, corridor)
+    if group is not None:
+        model.system.use_gspmd(group)
+        if fallback is not None:
+            fallback.system.use_gspmd(group)
     n_dofs = model.space.n_dofs
     dev = model.device
-    print(f"device: {dev}"
-          + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
-             else ""), flush=True)
+    say(f"device: {dev}"
+        + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
+           else "")
+        + ("" if group is None else
+           f", {group.size} ranks on z-slabs, node rows "
+           f"{model.system.slabs.layout.counts()}"))
     corr = model.cfg.z_corridor
-    print(f"mesh: {n_dofs} dofs ({3 * n_dofs} unknowns), "
-          f"z_corridor=({corr[0]:.4e},{corr[1]:.4e},dz={corr[2]:g})"
-          f"{' [moving]' if window else ''}, stab={args.stab}, "
-          f"precond={args.precond}, dtype={'f64' if args.f64 else 'f32'}",
-          flush=True)
-    driver = build_driver(args, model, fallback)
+    say(f"mesh: {n_dofs} dofs ({3 * n_dofs} unknowns), "
+        f"z_corridor=({corr[0]:.4e},{corr[1]:.4e},dz={corr[2]:g})"
+        f"{' [moving]' if window else ''}, stab={args.stab}, "
+        f"precond={args.precond}, dtype={'f64' if args.f64 else 'f32'}")
+    driver = build_driver(args, model, fallback, logs=lead)
 
     if args.resume and ckpt.exists():
         state, meta = load_checkpoint(ckpt, device=dev, with_meta=True)
@@ -364,26 +408,37 @@ def main(argv=None) -> int:
             # restrict: a cross-resolution resume averages locally coarser
             # regions instead of sampling them
             state = model._remap_z(state, zs_src, zs_dst, n_r, restrict=True)
-            print(f"remapped checkpoint z-lines: wall-dz {src_wall} -> "
-                  f"{args.wall_dz}, corridor dz {src_corridor[2]:g} -> "
-                  f"{model.cfg.z_corridor[2]:g}, tails {src_tails} -> "
-                  f"{model.cfg.z_tail_cells} ({len(zs_src)} -> "
-                  f"{len(zs_dst)} z-lines; wall cell "
-                  f"{zs_src[1] - zs_src[0]:.2e} -> "
-                  f"{zs_dst[1] - zs_dst[0]:.2e})", flush=True)
+            say(f"remapped checkpoint z-lines: wall-dz {src_wall} -> "
+                f"{args.wall_dz}, corridor dz {src_corridor[2]:g} -> "
+                f"{model.cfg.z_corridor[2]:g}, tails {src_tails} -> "
+                f"{model.cfg.z_tail_cells} ({len(zs_src)} -> "
+                f"{len(zs_dst)} z-lines; wall cell "
+                f"{zs_src[1] - zs_src[0]:.2e} -> "
+                f"{zs_dst[1] - zs_dst[0]:.2e})")
             # the remap invalidates the BDF2 history
             state = restart_bdf_history(state, dt=args.resume_dt)
-            print(f"cross-resolution remap: BDF history restarted "
-                  f"(backward-Euler first step, dt={state.dt:.3e})",
-                  flush=True)
+            say(f"cross-resolution remap: BDF history restarted "
+                f"(backward-Euler first step, dt={state.dt:.3e})")
         if args.restart_bdf:
             state = restart_bdf_history(state, dt=args.resume_dt)
-            print(f"--restart-bdf: BDF history restarted (backward-Euler "
-                  f"first step, dt={state.dt:.3e})", flush=True)
-        print(f"resumed from {ckpt}: t={state.t:.4e}, "
-              f"{state.n_accepted} steps", flush=True)
+            say(f"--restart-bdf: BDF history restarted (backward-Euler "
+                f"first step, dt={state.dt:.3e})")
+        say(f"resumed from {ckpt}: t={state.t:.4e}, "
+            f"{state.n_accepted} steps")
+        # every rank read the whole state: keep its rows
+        place = model.system.place_state
+        state.u, state.u_old, state.u_old1 = (
+            place(state.u), place(state.u_old), place(state.u_old1))
     else:
         state = model.initial_state()
+    whole = model.system.gather_state
+
+    def whole_state(st):
+        """`st` with the whole grid's fields (gathered on z-slabs)."""
+        return TimeState(u=whole(st.u), u_old=whole(st.u_old),
+                         u_old1=whole(st.u_old1), t=st.t, dt=st.dt,
+                         dt_old=st.dt_old, max_error=st.max_error,
+                         n_accepted=st.n_accepted, n_rejected=st.n_rejected)
 
     def axis_nodes():
         coords = model.space.dof_coords
@@ -393,7 +448,7 @@ def main(argv=None) -> int:
     axis, z_axis = axis_nodes()
 
     def report(state, wall, n_since) -> float:
-        u = state.u.cpu().numpy()
+        u = whole(state.u).cpu().numpy()
         ne_axis = np.exp(u[axis, 1])
         in_streamer = ne_axis > FRONT_DENSITY
         front = (float(z_axis[in_streamer].min()) if in_streamer.any()
@@ -408,12 +463,12 @@ def main(argv=None) -> int:
                 state.u, state.u_old, StepParams(state.t, state.dt,
                                                  state.dt_old))
             guards = f" n_guarded={n_g}"
-        print(f"t={state.t:.4e} dt={state.dt:.3e} steps={state.n_accepted} "
-              f"rej={state.n_rejected} esc={driver.n_escalated} "
-              f"stall={driver.n_stall_accepted} "
-              f"ne_max={ne_axis.max():.3e} front_z={front:.4e} "
-              f"Emax={np.abs(Ez).max():.3e}{guards} "
-              f"[{n_since / max(wall, 1e-9):.2f} steps/s]", flush=True)
+        say(f"t={state.t:.4e} dt={state.dt:.3e} steps={state.n_accepted} "
+            f"rej={state.n_rejected} esc={driver.n_escalated} "
+            f"stall={driver.n_stall_accepted} "
+            f"ne_max={ne_axis.max():.3e} front_z={front:.4e} "
+            f"Emax={np.abs(Ez).max():.3e}{guards} "
+            f"[{n_since / max(wall, 1e-9):.2f} steps/s]")
         return front
 
     def ckpt_meta() -> dict:
@@ -431,7 +486,10 @@ def main(argv=None) -> int:
     driver.crash_meta = ckpt_meta
 
     def save(path):
-        save_checkpoint(path, state, meta=ckpt_meta())
+        st = whole_state(state)   # on z-slabs a collective
+        if not lead:
+            return
+        save_checkpoint(path, st, meta=ckpt_meta())
         if window:  # human-readable only; a resume reads the meta
             (args.out / "window.json").write_text(
                 json.dumps(list(model.cfg.z_corridor)))
@@ -454,12 +512,11 @@ def main(argv=None) -> int:
                     and front < z_lo + 0.35 * span):
                 new_corr = window_corr(front, span, args.window_dz)
                 if abs(new_corr[0] - z_lo) > 1e-12:
-                    print(f"REMESH: window {model.cfg.z_corridor} -> "
-                          f"{new_corr} (front at {front:.4e})", flush=True)
+                    say(f"REMESH: window {model.cfg.z_corridor} -> "
+                        f"{new_corr} (front at {front:.4e})")
                     t_rm = time.perf_counter()
                     state = model.move_window(new_corr, state)
-                    print(f"REMESH done in {time.perf_counter() - t_rm:.2f}s",
-                          flush=True)
+                    say(f"REMESH done in {time.perf_counter() - t_rm:.2f}s")
                     axis, z_axis = axis_nodes()
                     save(ckpt)
                     last_saved = state.n_accepted
@@ -474,10 +531,10 @@ def main(argv=None) -> int:
     save(ckpt)
     report(state, time.perf_counter() - t_wall, state.n_accepted - n_last)
     done = state.t >= T * (1 - 1e-12)
-    print(f"{'REACHED T_final' if done else 'STOPPED'} at t={state.t:.6e} "
-          f"({state.n_accepted} accepted, {state.n_rejected} rejected, "
-          f"{driver.n_escalated} escalated, {driver.n_stall_accepted} "
-          f"stall-accepted this segment)", flush=True)
+    say(f"{'REACHED T_final' if done else 'STOPPED'} at t={state.t:.6e} "
+        f"({state.n_accepted} accepted, {state.n_rejected} rejected, "
+        f"{driver.n_escalated} escalated, {driver.n_stall_accepted} "
+        f"stall-accepted this segment)")
     return 0
 
 

@@ -10,7 +10,9 @@ the time-of-flight models keeps one field, u [n_dofs, n_eq] (P1 or P2
 dofs), which `field_from_array` moves (`.cpu().numpy()` moves it back).
 A batched sweep's state (the JAX `SweepState`: the same fields with a
 leading member axis) moves with `sweep_state_from_arrays`, from one such
-state or from a list of single states.
+state or from a list of single states. A state of a structured system on
+z-slabs (`CoupledSystem.use_gspmd`) splits into the ranks' slabs with
+`split_state`, and `join_state` puts them back together.
 """
 
 from __future__ import annotations
@@ -87,3 +89,21 @@ def sweep_state_from_arrays(src, device="cuda"):
         **{k: np.array(np.asarray(get(k)), np.float64)
            for k in SCALARS + ("max_error",)},
         **{k: np.array(np.asarray(get(k)), int) for k in COUNTERS})
+
+
+def split_state(u, n_i: int, n_j: int, levels: int, size: int) -> list:
+    """A whole-grid field [n_j * n_i, ...] (numpy, e.g. a JAX state's u)
+    as the `size` ranks' z-slabs (`parallel.slabs.SlabLayout`), in rank
+    order."""
+    from .parallel.slabs import SlabLayout
+
+    u = np.asarray(u)
+    lay = SlabLayout(n_j, levels, size)
+    return [u[lo * n_i:hi * n_i] for lo, hi in
+            (lay.rows(r) for r in range(size))]
+
+
+def join_state(parts) -> np.ndarray:
+    """The inverse of `split_state`: the ranks' slabs, in rank order, as
+    the whole-grid field."""
+    return np.concatenate([np.asarray(p) for p in parts])

@@ -143,6 +143,11 @@ class StepOperators:
         """The batches' summed scatter as a state-layout tensor."""
         return r
 
+    def _cells(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-cell table of the system's cell batch [n_cells, ...] for
+        the cells of this operator's cell batch."""
+        return t
+
     def _zeros(self, *trailing):
         return torch.zeros((self.n_dofs,) + trailing, dtype=self.dtype,
                            device=self.mask.device)
@@ -222,11 +227,11 @@ class StepOperators:
             self._tangents = key + (Ts,)
         return self._tangents[2]
 
-    def _local_tangents(self, bi: int, delta: torch.Tensor):
+    def _local_tangents(self, bi: int, delta: torch.Tensor, d_in):
         """(a, j, t) for every local tangent basis vector e_(a, j) of batch
         `bi`: t is the kernel's tangent [n_elems, n_local, n_eq] along it
         at `delta` (from `_all_tangents` with `element_jacobian`, else
-        one forward-mode pass each)."""
+        one forward-mode pass each, at `d_in`)."""
         if self.element_jacobian:
             T = self._all_tangents(delta)[bi]
             for a in range(T.shape[2]):
@@ -234,12 +239,18 @@ class StepOperators:
                     yield a, j, T[a * self.n_eq + j]
             return
         (batch, kernel), ctx = self.batches[bi], self.ctxs[bi]
-        u_e = batch.gather(self._in(delta))
+        u_e = batch.gather(d_in)
         for a in range(u_e.shape[1]):
             for j in range(self.n_eq):
                 tan = torch.zeros_like(u_e)
                 tan[:, a, j] = 1.0
                 yield a, j, _jvp(kernel, batch, ctx, u_e, tan)
+
+    def _tangent_input(self, delta: torch.Tensor):
+        """`_in(delta)` for `_local_tangents`, made once for all batches (on
+        z-slabs a collective, which every rank makes however many batches
+        it holds); None with `element_jacobian` (`_all_tangents` fills)."""
+        return None if self.element_jacobian else self._in(delta)
 
     def jacobian_blocks(self, delta: torch.Tensor, zline=None):
         """Exact per-dof diagonal blocks B[n, i, j] = dR_i/d delta_j at dof n
@@ -254,6 +265,9 @@ class StepOperators:
         ne = self.n_eq
         blocks = self._zeros(ne, ne)
         zc = None
+        d_in = self._tangent_input(delta)
+        if zline is not None:
+            zline = (zline[0], self._cells(zline[1]), self._cells(zline[2]))
         for bi, (batch, _) in enumerate(self.batches):
             n_elems, nl = batch.dofs.shape
             # diag[c, a, i, j] = d contrib(c, a, i) / d u_e(c, a, j)
@@ -264,7 +278,7 @@ class StepOperators:
                 eqs, m_sub, m_sup = zline
                 cross = torch.zeros((n_elems, nl, len(eqs), 2),
                                     dtype=self.dtype, device=delta.device)
-            for a, j, t in self._local_tangents(bi, delta):
+            for a, j, t in self._local_tangents(bi, delta, d_in):
                 diag[:, a, :, j] = t[:, a, :]
                 if cross is not None and j in eqs:
                     k = eqs.index(j)
@@ -272,7 +286,8 @@ class StepOperators:
                     cross[:, :, k, 1] += m_sup[:, :, a] * t[:, :, j]
             blocks = batch.scatter_add(blocks, diag)
             if cross is not None:
-                zc = batch.scatter_add(self._zeros(len(eqs), 2), cross)
+                zc = self._out(batch.scatter_add(self._zeros(len(eqs), 2),
+                                                 cross))
         blocks = self._out(blocks)
         eye = torch.eye(ne, dtype=self.dtype, device=blocks.device)
         blocks = torch.where(self.mask[:, :, None], eye, blocks)
@@ -287,12 +302,63 @@ class StepOperators:
         n_eq]: sum over elements and local columns of |d contrib / d
         delta|, neighbour couplings included."""
         norms = self._zeros(self.n_eq)
+        d_in = self._tangent_input(delta)
         for bi, (batch, _) in enumerate(self.batches):
             contrib = None
-            for _, _, t in self._local_tangents(bi, delta):
+            for _, _, t in self._local_tangents(bi, delta, d_in):
                 contrib = t.abs() if contrib is None else contrib + t.abs()
             norms = batch.scatter_add(norms, contrib)
         return self._out(norms)
+
+
+class SlabOperators(StepOperators):
+    """`StepOperators` of a system on z-slabs (`CoupledSystem.use_gspmd`):
+    delta, the state and the results are this rank's node rows; each
+    operation fills the one-row halo of its input (`Slabs.fill`, one
+    exchange), runs the batches' slab views over the extended rows and
+    keeps the own rows. No halo reduction: every own node sums what it
+    sums on one card, in the same order."""
+
+    def __init__(self, system: "CoupledSystem", u_old: torch.Tensor,
+                 u_old1: torch.Tensor, params: StepParams, dtype,
+                 aux: Optional[Dict] = None):
+        sl = self.slabs = system.slabs
+        self.n_dofs, self.n_eq = sl.n_ext, system.n_eq
+        self.dtype = dtype
+        self.mask = sl.own(system.bcs.mask)
+        self._setup([(b.astype(dtype), k) for b, k in system.slab_batches],
+                    sl.own(system.bcs.values_at(params.t)), u_old, u_old1,
+                    params, aux)
+
+    def _in(self, x: torch.Tensor) -> torch.Tensor:
+        return self.slabs.fill(x)
+
+    def _out(self, r: torch.Tensor) -> torch.Tensor:
+        return r[self.slabs.own_ext]
+
+    def _cells(self, t: torch.Tensor) -> torch.Tensor:
+        return t[self.batches[0][0].cells_t]
+
+
+class ShardOperators(StepOperators):
+    """`StepOperators` of the round-1 sharded system (`CoupledSystem.shard`):
+    the state is whole on every rank, each rank's batches hold its block of
+    the elements (scattered through their own ELL tables, K1), and each
+    assembled result is the sum of the ranks' (one all-reduce)."""
+
+    def __init__(self, system: "CoupledSystem", u_old: torch.Tensor,
+                 u_old1: torch.Tensor, params: StepParams, dtype,
+                 aux: Optional[Dict] = None):
+        self.group = system._shard[0]
+        self.n_dofs, self.n_eq = system.n_dofs, system.n_eq
+        self.dtype = dtype
+        self.mask = system.bcs.mask
+        self._setup([(b.astype(dtype), k) for b, k in system._shard[1]],
+                    system.bcs.values_at(params.t), u_old, u_old1, params,
+                    aux)
+
+    def _out(self, r: torch.Tensor) -> torch.Tensor:
+        return self.group.all_reduce(r)
 
 
 class CoupledSystem:
@@ -315,6 +381,13 @@ class CoupledSystem:
         # with `row_scaled`: an absolute target of this times ||u_old||
         # (0 disables)
         self.row_scaled_atol_rel = 0.0
+        # z-slabs over a group (`use_gspmd`): the layout, the batches' slab
+        # views, and the group every reduction of a step runs over
+        self.slabs = None
+        self.slab_batches = None
+        self.group = None
+        # the round-1 sharding (`shard`): (group, the rank's batches)
+        self._shard = None
 
     @property
     def dtype(self):
@@ -349,6 +422,100 @@ class CoupledSystem:
                              f"{len(held)}")
         for (b, _), new in zip(held, batches):
             b.set_geometry(new)
+        if self.slabs is not None:
+            self._slice_batches()
+
+    # -- multi-card: z-slabs (the production path) and the round-1 shard --
+
+    def use_gspmd(self, group) -> None:
+        """Put this structured system on z-slabs over `group`
+        (`parallel.ranks.Group`, one rank per card): the counterpart of
+        the JAX package's `use_gspmd` (`parallel.slabs`). Every state the
+        system then takes and returns is this rank's node rows
+        (`place_state`; `gather_state` gives the whole grid back), every
+        reduction of a step runs over the group, and the Poisson row's
+        preconditioner moves to the slabs: the structured V-cycle
+        (`SlabPoissonMG`, the slabs aligned to its levels) or the z-line
+        smoother (`SlabLineSolver`). Raises ValueError without structured
+        assembly, as the JAX package does, and NotImplementedError for a
+        Poisson-row preconditioner that has no slab form (the unstructured
+        multigrid, the Chebyshev solve: ROADMAP.md, section 1)."""
+        from ..parallel.slabs import (SlabLineSolver, SlabPoissonMG, Slabs,
+                                      grid_shape)
+        from ..solvers.linesmoother import ZLineSmoother
+        from ..solvers.structured_mg import StructuredPoissonMG
+
+        shape = grid_shape(self.cell_batch)
+        if shape is None:
+            raise ValueError("use_gspmd needs structured assembly "
+                             "(CellBatch.try_structured, through "
+                             "use_gather_scatter)")
+        if self._shard is not None:
+            raise ValueError("the system is sharded (shard); z-slabs take "
+                             "a system that is not")
+        owner = (None if self._ell is None
+                 else getattr(self._ell[1], "__self__", None))
+        if self._ell is not None and not isinstance(
+                owner, (StructuredPoissonMG, ZLineSmoother)):
+            raise NotImplementedError(
+                f"the Poisson-row preconditioner {self._ell[1]!r} has no "
+                f"z-slab form (only the structured V-cycle 'mg-zline' and "
+                f"the z-line smoother 'zline' do): see ROADMAP.md, "
+                f"section 1")
+        levels = (owner.n_levels if isinstance(owner, StructuredPoissonMG)
+                  else 1)
+        self.slabs = Slabs(group, *shape, levels)
+        self.group = group
+        self._slice_batches()
+        if isinstance(owner, StructuredPoissonMG):
+            self._ell = (self._ell[0], SlabPoissonMG(owner,
+                                                     self.slabs).precond)
+        elif owner is not None:
+            eq = self._ell[0]
+            self._ell = (eq, SlabLineSolver(
+                owner, self.slabs, self.masked_stiffness_op(eq)).solve)
+
+    def _slice_batches(self) -> None:
+        from ..parallel.slabs import slab_batches
+
+        self.slab_batches = slab_batches(self.slabs, list(self._batches()))
+        v = self.slab_batches[0][0]
+        v.cells_t = torch.as_tensor(v.cells, device=v.device)
+
+    def place_state(self, x: torch.Tensor) -> torch.Tensor:
+        """A whole-grid nodal tensor [n_dofs, ...] as the system holds it:
+        this rank's node rows on z-slabs, else `x` itself."""
+        return x if self.slabs is None else self.slabs.own(x)
+
+    def gather_state(self, x: torch.Tensor) -> torch.Tensor:
+        """The inverse of `place_state` (on z-slabs a collective: every
+        rank gets the whole grid)."""
+        return x if self.slabs is None else self.slabs.gather_state(x)
+
+    def shard(self, group) -> None:
+        """The round-1 route (the JAX package's `shard`): every batch's
+        elements split over the ranks of `group` in blocks, padded to a
+        multiple of the rank count with elements that have no scatter slot
+        (as `pad_to` pads), each block scattered through its own ELL table
+        (K1). The state stays whole on every rank; assembly, J v and the
+        node blocks are a local sum plus one all-reduce, and the solvers
+        run on the whole (identical) vectors."""
+        if self.slabs is not None:
+            raise ValueError("the system is on z-slabs (use_gspmd)")
+        R, rank = group.size, group.rank
+        views = []
+        for batch, kernel in self._batches():
+            n = batch.dofs_np.shape[0]
+            per = -(-n // R)
+            idx = np.arange(rank * per, (rank + 1) * per)
+            dead = idx >= n
+            idx = np.minimum(idx, n - 1)
+            arrays = {f: (batch.dofs_np[idx] if f == "dofs"
+                          else getattr(batch, f).cpu().numpy()[idx])
+                      for f in batch._SHARD_FIELDS}
+            views.append((batch.local_view(arrays, batch.n_dofs, dead),
+                          kernel))
+        self._shard = (group, views)
 
     def enable_elliptic_precond(self, eq: int, degree: int = 12,
                                 ratio: float = 30.0, power_iters: int = 40,
@@ -391,11 +558,19 @@ class CoupledSystem:
         operator the elliptic preconditioners approximate."""
         mask = self.bcs.mask[:, eq]
         b = self.cell_batch
+        sl = self.slabs
+        if sl is not None:
+            mask = sl.own(mask)
 
         def A(x):
             m = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
             x_in = torch.where(m, 0.0, x).to(b.dtype)
-            Ax = b.scatter(b.stiffness(b.grad(b.gather(x_in))))
+            if sl is None:
+                Ax = b.scatter(b.stiffness(b.grad(b.gather(x_in))))
+            else:
+                v = self.slab_batches[0][0]
+                Ax = v.scatter(v.stiffness(v.grad(v.gather(
+                    sl.fill(x_in)))))[sl.own_ext]
             return torch.where(m, x, Ax)
 
         return A
@@ -423,13 +598,24 @@ class CoupledSystem:
         exact (sub, diag, sup) couplings, diag from the node blocks."""
         eqs, grid = self._tzline[:2]
         flat = grid.reshape(-1)
+        # on z-slabs a line crosses every slab: the couplings are gathered
+        # once, each right-hand side per application, and every rank solves
+        # the whole grid and keeps its rows (on one card both are the
+        # identity)
+        sl = self.slabs
+        whole = (lambda x: x) if sl is None else sl.gather_state
+        own = (lambda x: x) if sl is None else sl.own
+        coef = [tuple(whole(c)[grid] for c in
+                      (sub[:, k], blocks[:, e, e], sup[:, k]))
+                for k, e in enumerate(eqs)]
 
         def solve(r):
             out = torch.empty_like(r)
-            for k, e in enumerate(eqs):
-                x = tridiag_solve_pcr(sub[:, k][grid], blocks[:, e, e][grid],
-                                      sup[:, k][grid], r[:, k][grid])
-                out[flat, k] = x.reshape(-1)
+            for k, (a, b, c) in enumerate(coef):
+                x = tridiag_solve_pcr(a, b, c, whole(r[:, k])[grid])
+                y = torch.empty(flat.shape[0], dtype=x.dtype, device=x.device)
+                y[flat] = x.reshape(-1)
+                out[:, k] = own(y)
             return out
 
         return solve
@@ -439,8 +625,10 @@ class CoupledSystem:
 
     def operators(self, u_old, u_old1, params: StepParams, dtype=None,
                   aux: Optional[Dict] = None) -> StepOperators:
-        return StepOperators(self, u_old, u_old1, params,
-                             self.dtype if dtype is None else dtype, aux)
+        kind = (SlabOperators if self.slabs is not None else
+                ShardOperators if self._shard is not None else StepOperators)
+        return kind(self, u_old, u_old1, params,
+                    self.dtype if dtype is None else dtype, aux)
 
     def residual(self, u, u_old, u_old1, params: StepParams, dtype=None,
                  aux: Optional[Dict] = None):
@@ -495,7 +683,7 @@ class CoupledSystem:
         rownorm = ops.row_l1(delta)
         w = torch.where((rownorm > 0) & torch.isfinite(rownorm),
                         1.0 / rownorm, 1.0)
-        return torch.where(self.bcs.mask, 1.0, w).to(rownorm.dtype)
+        return torch.where(ops.mask, 1.0, w).to(rownorm.dtype)
 
     def guarded_block_count(self, u_old, u_old1, params: StepParams,
                             aux: Optional[Dict] = None) -> int:
@@ -505,7 +693,11 @@ class CoupledSystem:
         the fallback would otherwise hide."""
         ops = self.operators(u_old, u_old1, params, aux=aux)
         delta = torch.zeros_like(u_old, dtype=ops.dtype)
-        return invert_blocks(ops.jacobian_blocks(delta), with_count=True)[1]
+        n = invert_blocks(ops.jacobian_blocks(delta), with_count=True)[1]
+        if self.group is None:
+            return n
+        return int(self.group.all_reduce(torch.tensor(
+            [n], device=self.group.device))[0])
 
     def step(self, u_guess, u_old, u_old1, aux: Dict, params: StepParams):
         """One attempted nonlinear solve at (t, dt) from
@@ -525,11 +717,13 @@ class CoupledSystem:
             delta, info = newton_solve(
                 ops.residual, ops.jacobian_action, delta, self.newton,
                 self.block_precond_builder(ops), residual_hi=R_hi,
-                predicted=u_guess is not u_old, dyn_atol=self.dyn_atol)
+                predicted=u_guess is not u_old, dyn_atol=self.dyn_atol,
+                group=self.group)
         else:
             delta, info = newton_krylov(
                 ops.residual, ops.jacobian_action, delta, self.newton,
-                self.block_precond_builder(ops), residual_hi=R_hi)
+                self.block_precond_builder(ops), residual_hi=R_hi,
+                group=self.group)
         return u_old + delta.to(u_old.dtype), info
 
     def _step_row_scaled(self, ops: StepOperators, delta, u_old):
@@ -541,7 +735,7 @@ class CoupledSystem:
         w = self.row_weights(ops, delta)
         if self.row_scaled_atol_rel > 0:
             atol = self.row_scaled_atol_rel * float(_norm(u_old.to(
-                ops.dtype)))
+                ops.dtype), self.group))
             newton = dataclasses.replace(newton, atol=max(newton.atol, atol))
         if ops.dtype == torch.float32 and newton.stol == 0.0:
             newton = dataclasses.replace(newton, stol=1e-3)
@@ -554,7 +748,8 @@ class CoupledSystem:
             return lambda v: w * J(v)
 
         return newton_krylov(residual, jacobian_action, delta, newton,
-                             self.block_precond_builder(ops, w))
+                             self.block_precond_builder(ops, w),
+                             group=self.group)
 
 
 # -- B independent members of one system (batched parameter sweeps) ----------

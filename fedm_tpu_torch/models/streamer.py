@@ -547,6 +547,14 @@ class StreamerModel:
         zs_old = np.unique(self.mesh.coords[:, 1])
         xs = np.unique(self.mesh.coords[:, 0])
         new_cfg = dataclasses.replace(cfg, z_corridor=tuple(new_corridor))
+        # on z-slabs the remap reads whole z-lines: gather the state, remap
+        # it as on one card and keep this rank's rows
+        place = getattr(self.system, "place_state", None)
+        if state is not None and place is not None:
+            whole = self.system.gather_state
+            state = dataclasses.replace(state, u=whole(state.u),
+                                        u_old=whole(state.u_old),
+                                        u_old1=whole(state.u_old1))
         zs_new = z_coords(new_cfg)
         if len(zs_new) != len(zs_old):
             raise ValueError("the window moved to another node count; the "
@@ -566,7 +574,12 @@ class StreamerModel:
         self.mesh, self.space, self.cfg = mesh, space, new_cfg
         if state is None:
             return None
-        return self._remap_z(state, zs_old, zs_new, len(xs))
+        state = self._remap_z(state, zs_old, zs_new, len(xs))
+        if place is None:
+            return state
+        return dataclasses.replace(state, u=place(state.u),
+                                   u_old=place(state.u_old),
+                                   u_old1=place(state.u_old1))
 
     def remap_state(self, dst_model: "StreamerModel", state: TimeState,
                     restrict: bool = True) -> TimeState:
@@ -689,29 +702,37 @@ class StreamerModel:
         cfg = self.cfg
         dev, f64 = self.device, torch.float64
         coords = self.space.dof_coords
+        # on z-slabs (`CoupledSystem.use_gspmd`) this rank's node rows, its
+        # slab of the cells, and the solve reduces over the slabs
+        sl = getattr(self.system, "slabs", None)
+        batch = self.batch
+        if sl is not None:
+            coords = sl.own(coords)
+            batch = self.system.slab_batches[0][0]
+        fill = (lambda x: x) if sl is None else sl.fill
         r, z = coords[:, 0], coords[:, 1]
         n_ion = cfg.background + cfg.seed_amplitude * np.exp(
             -(r**2 + (z - cfg.seed_z) ** 2) / cfg.seed_width**2)
         u_ion = torch.as_tensor(np.log(n_ion), dtype=f64, device=dev)
-        u_el = torch.full((self.space.n_dofs,), float(np.log(cfg.background)),
+        u_el = torch.full((len(coords),), float(np.log(cfg.background)),
                           dtype=f64, device=dev)
         # float64 arithmetic on the compute dtype's tables and constant,
         # as the JAX package's promotion of its mixed-type einsums
-        b64 = self.batch.astype(f64)
+        b64 = batch.astype(f64)
         q = torch.tensor(elementary_charge / epsilon_0,
                          dtype=self.batch.dtype, device=dev)
-        rho_q = (torch.exp(b64.value(b64.gather(u_ion)))
-                 - torch.exp(b64.value(b64.gather(u_el)))) * q
+        rho_q = (torch.exp(b64.value(b64.gather(fill(u_ion))))
+                 - torch.exp(b64.value(b64.gather(fill(u_el))))) * q
         cathode = np.isclose(z, 0.0)
         anode = np.isclose(z, cfg.box_height)
         g = np.where(anode, cfg.U_w, 0.0)
         tol = 1e-12 if self.batch.dtype == f64 else 1e-6
         ell = getattr(self.system, "inner", self.system)._ell
         phi, relres, iters = solve_poisson(
-            self.batch, rho_q, torch.as_tensor(cathode | anode, device=dev),
+            batch, rho_q, torch.as_tensor(cathode | anode, device=dev),
             torch.as_tensor(g, dtype=self.batch.dtype, device=dev),
             tol=tol, maxiter=4000,
-            precond=None if ell is None else ell[1])
+            precond=None if ell is None else ell[1], slabs=sl)
         relres = float(relres)
         self.initial_poisson = (relres, iters)
         if not relres < max(tol * 100, 1e-5):

@@ -14,6 +14,22 @@ test module nor JAX.
     stall(group, seconds)    every rank sleeps (a run past its limit)
     several(group, jobs)     the workers named in `jobs`, in order, in one
                              launch
+    slab_ops(group, spec)    a structured model on z-slabs: its operators,
+                             one V-cycle and one z-line solve, this rank's
+                             rows, and a residual without the halo row
+                             from below (the control)
+    slab_march(group, spec)  a structured model on z-slabs (or, without a
+                             group, on one card) through a plan of
+                             advances, window moves and steps
+    krylov_spread(group, spec)  one card's march again from perturbed
+                             states (the port's own spread of its counts)
+    slab_march_one_rank(group, spec)  the march on one slab of a one-rank
+                             group
+    shard(group, spec)       the round-1 sharded system: residual, node
+                             blocks and one step
+    on_one_rank(group, spec) another worker on one rank's card, without
+                             the group (a one-card reference)
+    slab_units(group, spec)  the slab pieces of a seeded grid
 """
 
 from __future__ import annotations
@@ -310,3 +326,426 @@ def several(group: Group, jobs: list) -> dict:
     """Run the workers of `jobs`, (key, worker name, spec) in order, on
     one launch's ranks: {key: that worker's result}."""
     return {key: globals()[name](group, spec) for key, name, spec in jobs}
+
+
+# -- z-slabs (`CoupledSystem.use_gspmd`) and the round-1 shard ----------------
+
+
+def slab_model(spec: dict, device):
+    """A structured streamer model (spec: `bagheri_argv`, the arguments of
+    `bagheri_run` whose model to build, or `cfg` and `newton`, the
+    StreamerConfig's and NewtonConfig's keywords, and `float32`), with the
+    structured assembly engaged."""
+    from ..models.streamer import StreamerConfig, StreamerModel
+    from ..solvers.newton import NewtonConfig
+
+    if "bagheri_argv" in spec:
+        from .. import bagheri_run
+
+        args = bagheri_run.parse_args([*spec["bagheri_argv"], "--out", "-",
+                                       "--device", str(device)])
+        corr = (spec["corridor"] if "corridor" in spec else
+                bagheri_run.window_corr(1e-2, args.window_span,
+                                        args.window_dz))
+        return bagheri_run.build_models(args, tuple(corr))[0]
+    kw = dict(spec.get("cfg", {}))
+    if "newton" in spec:
+        kw["newton"] = NewtonConfig(**spec["newton"])
+    if spec.get("float32"):
+        kw["dtype"] = torch.float32
+    m = StreamerModel(StreamerConfig(**kw), device=device)
+    m.system.use_gather_scatter()
+    return m
+
+
+def _slab_state(spec: dict, m, device):
+    """The start (spec: `ckpt`, a checkpoint path; `u`, whole-grid numpy
+    fields u, u_old, u_old1 with t, dt, dt_old; else the model's initial
+    state), as the system holds it."""
+    if "ckpt" in spec:
+        from ..io import load_checkpoint
+
+        st = load_checkpoint(spec["ckpt"], device=device)
+    elif "u" in spec:
+        from ..convert import state_from_arrays
+
+        st = state_from_arrays({"max_error": [1.0, 1.0, 1.0],
+                                "n_accepted": 0, "n_rejected": 0,
+                                **spec["u"]}, device)
+    else:
+        return m.initial_state()
+    place = m.system.place_state
+    st.u, st.u_old, st.u_old1 = (place(st.u), place(st.u_old),
+                                 place(st.u_old1))
+    return st
+
+
+def _dropping_below(slabs):
+    """`slabs.halo` with every row received from below zeroed (the
+    control: a halo exchange that drops one row)."""
+    halo = slabs.halo
+
+    def run(x, dim=0, below=True, above=True, zeros=False):
+        out = halo(x, dim, below, above, zeros)
+        if below and slabs.group.rank > 0:
+            out.narrow(dim, 0, 1).zero_()
+        return out
+
+    return run
+
+
+def slab_ops(group, spec: dict) -> dict:
+    """`ops_record` of a structured model (`slab_model`) at a state
+    (`_slab_state`, on one card), on this rank's z-slab (on one card
+    without a group; spec `device`)."""
+    dev = group.device if group is not None else torch.device(
+        spec["device"])
+    m = slab_model(spec, dev)
+    return ops_record(m, _slab_state(spec, m, dev), group, spec)
+
+
+def ops_record(m, st, group, spec: dict, smoother=None) -> dict:
+    """A structured model `m` at the whole state `st` and its next step's
+    parameters, on this rank's z-slab of `group` (`use_gspmd`; one card
+    without a group): the residual at delta = u - u_old in the compute
+    type and in float64, J v and the node blocks there, one V-cycle (or
+    the model's Poisson-row solve), one z-line solve (`ZLineSmoother`, 2
+    line solves, on the same mesh) and one application of the whole
+    preconditioner, of seeded vectors (spec `seed`); with a group also
+    the residual without the halo row from below (`control_F`) and, on a
+    card whose rank holds electrode facets, K1 at its facet table against
+    its plain version. This rank's rows, on the host. `smoother`: that
+    `ZLineSmoother`, built already (on the whole grid, as here)."""
+    from unittest import mock as _mock
+
+    from ..model.system import StepParams
+    from ..parallel.slabs import SlabLineSolver
+    from ..solvers.linesmoother import ZLineSmoother
+
+    dev = st.u.device
+    sysm = m.system
+    sm = smoother or ZLineSmoother(
+        sysm.masked_stiffness_op(2), m._node_grid(m.space), m.space.n_dofs,
+        n_iter=2, dtype=m.batch.dtype, device=dev)
+    zline = sm.solve
+    n_i = sysm.cell_batch._structured[0] + 1
+    rows = (0, m.space.n_dofs // n_i)
+    if group is not None:
+        sysm.use_gspmd(group)
+        zline = SlabLineSolver(sm, sysm.slabs,
+                               sysm.masked_stiffness_op(2)).solve
+        rows = (sysm.slabs.lo, sysm.slabs.hi)
+    place = sysm.place_state
+    u, u_old = place(st.u), place(st.u_old)
+    p = StepParams(st.t + st.dt, st.dt, st.dt_old)
+    rng = np.random.default_rng(spec.get("seed", 0))
+    n = m.space.n_dofs
+    put = lambda a: place(torch.as_tensor(a, device=dev))  # noqa: E731
+    v = put(rng.standard_normal((n, 3))).to(sysm.dtype)
+    r = put(rng.standard_normal(n)).to(sysm.dtype)
+    r3 = put(rng.standard_normal((n, 3))).to(sysm.dtype)
+    ops = sysm.operators(u, u_old, p)
+    delta = (u - u_old).to(ops.dtype)
+    out = {"rank": group.rank if group is not None else 0,
+           "card": card_of(dev), "rows": rows,
+           "F": ops.residual(delta).cpu(),
+           "F64": sysm.operators(u, u_old, p, torch.float64
+                                 ).residual(delta.double()).cpu(),
+           "Jv": ops.jacobian_action(delta)(v).cpu(),
+           "B": ops.jacobian_blocks(delta).cpu(),
+           "V": sysm._ell[1](r).cpu(),
+           "zline": zline(r).cpu(),
+           "M": sysm.block_precond_builder(ops)(delta)(r3).cpu(),
+           "grads_shape": tuple(ops.batches[0][0].grads.shape),
+           "facet_rows": [int(b.dofs.shape[0]) for b, _ in ops.batches[1:]]}
+    if spec.get("profile_iters"):
+        out["krylov"] = _profiled_krylov(sysm, ops, delta, group,
+                                         spec["profile_iters"])
+    if group is not None:
+        with _mock.patch.object(sysm.slabs, "halo",
+                                _dropping_below(sysm.slabs)):
+            out["control_F"] = sysm.operators(
+                u, u_old, p).residual(delta).cpu()
+        if dev.type == "cuda" and len(sysm.slab_batches) > 1:
+            out["k1"] = _k1_facets(sysm.slab_batches[1][0], dev)
+    return out
+
+
+def _profiled_krylov(sysm, ops, delta, group, n: int) -> dict:
+    """`n` BiCGStab iterations of the preconditioned Jacobian M J (each
+    rank's rows, reductions over `group`): ms per iteration on the host
+    clock, the group's collectives per iteration, and on a card the
+    device's busy time (the union of its kernels' intervals, from one
+    profiler trace) and idle share."""
+    from contextlib import ExitStack
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..solvers.linear import bicgstab
+
+    dev = delta.device
+    J, M = ops.jacobian_action(delta), sysm.block_precond_builder(ops)(delta)
+    rhs = M(-ops.residual(delta))
+
+    def op(v):
+        return M(J(v))
+
+    bicgstab(op, rhs, tol=1e-30, maxiter=2, group=group)
+    coll = {}
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if dev.type == "cuda" else [])
+    with ExitStack() as stack:
+        if group is not None:
+            for pt in _plan_counts(group, coll):
+                stack.enter_context(pt)
+        with profile(activities=acts) as prof:
+            (_, _, iters), wall = on_card(lambda: bicgstab(
+                op, rhs, tol=1e-30, maxiter=n, group=group), dev)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy /= 1e6
+    iters = max(int(iters), 1)
+    return {"iterations": iters, "wall_s": wall,
+            "ms_per_iteration": 1e3 * wall / iters,
+            "collectives_per_iteration": {k: v / iters
+                                          for k, v in coll.items()},
+            "busy_s": busy if spans else "not measured",
+            "idle_share": 1.0 - busy / wall if spans else "not measured"}
+
+
+def _k1_facets(b, dev) -> dict:
+    """K1's compact form against its plain version at a rank's facet
+    table, at the residual's width (C = 3), float32."""
+    from ..ops import ell_scatter as k1
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    flat = torch.randn((b.dofs.numel(), 3), generator=gen, device=dev)
+    out0 = torch.randn((b.n_dofs, 3), generator=gen, device=dev)
+    before = k1.launch_count("ell_scatter_add_")
+    got = k1.ell_scatter_add_(out0.clone(), flat, b.scatter_idx,
+                              b.scatter_rows)
+    launched = k1.launch_count("ell_scatter_add_") - before
+    ref = k1.ell_scatter_add_ref(out0.clone(), flat, b.scatter_idx,
+                                 b.scatter_rows)
+    return {"rows": int(b.scatter_idx.shape[0]),
+            "max_val": int(b.scatter_idx.shape[1]),
+            "max_abs_err": float((got - ref).abs().max()),
+            "scale": float(ref.abs().max()), "launched": launched,
+            "device": str(got.device)}
+
+
+def _plan_counts(group, counts: dict):
+    """Patches of `group`'s collectives adding their calls to `counts`."""
+    def counted(name, fn):
+        def run(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **k)
+        return run
+
+    return [mock.patch.object(group, name, counted(name, getattr(group,
+                                                                 name)))
+            for name in ("exchange", "all_gather_rows", "all_reduce")]
+
+
+def slab_march(group, spec: dict) -> dict:
+    """A structured model (`slab_model`) from a state (`_slab_state`)
+    through `spec["plan"]`, on this rank's z-slab (one card without a
+    group; spec `device`): "advance" (the model's adaptive driver, with
+    spec `driver` options), ("move", corridor) (`move_window`) or
+    ("step", (t, dt, dt_old)) (one `system.step` from the state). Per
+    item: t, dt, the counts, the whole state's column 2-norms, the Newton
+    and Krylov iterations, the wall time on this rank's card, K1's
+    launches and the group's collectives (counted from 0 before the
+    item); then the whole final state (on rank 0). Spec `perturb`
+    (eps, seed, i): before plan item i, u scaled by (1 + eps * noise),
+    standard normal noise over the whole grid from `seed`."""
+    from contextlib import ExitStack
+
+    from ..model.system import StepParams
+    from ..ops import ell_scatter as k1
+    from ..solvers import newton
+
+    dev = group.device if group is not None else torch.device(
+        spec["device"])
+    m = slab_model(spec, dev)
+    if group is not None:
+        m.system.use_gspmd(group)
+    st = _slab_state(spec, m, dev)
+    driver = m.make_driver(**spec.get("driver", {}))
+    pert = spec.get("perturb")
+    rows = []
+    counts, log, coll = {}, [], {}
+    patches = {name: _counting(counts, log, name, getattr(newton, name))
+               for name in ("newton_iteration", "bicgstab", "gmres")}
+    for i, item in enumerate(spec["plan"]):
+        if pert is not None and i == pert[2]:
+            st = _perturbed(m.system, st, pert[0], pert[1])
+        counts.clear()
+        log.clear()
+        coll.clear()
+        k1.LAUNCHES.clear()
+        with ExitStack() as stack:
+            stack.enter_context(mock.patch.multiple(newton, **patches))
+            if group is not None:
+                for pt in _plan_counts(group, coll):
+                    stack.enter_context(pt)
+            if item == "advance":
+                st, secs = on_card(lambda st=st: driver.advance(st, {}), dev)
+            elif item[0] == "move":
+                st, secs = on_card(lambda st=st: m.move_window(
+                    tuple(item[1]), st), dev)
+            else:
+                p = StepParams(*item[1])
+                (u1, info), secs = on_card(lambda: m.system.step(
+                    st.u, st.u, st.u_old1, {}, p), dev)
+                st = dataclasses.replace(st, u=u1)
+        whole = m.system.gather_state(st.u)
+        rows.append({"item": item if isinstance(item, str) else item[0],
+                     "col_norms": torch.linalg.vector_norm(
+                         whole, dim=0).tolist(),
+                     "t": st.t, "dt": st.dt, "n_accepted": st.n_accepted,
+                     "n_rejected": st.n_rejected, "s": secs,
+                     "newton_iterations": counts.get("newton_iteration", 0),
+                     "bicgstab_iterations": counts.get("bicgstab", 0),
+                     "gmres_iterations": counts.get("gmres", 0),
+                     "k1_launches": sum(k1.LAUNCHES.values()),
+                     "collectives": dict(coll)})
+    return {"rank": group.rank if group is not None else 0,
+            "card": card_of(dev), "rows": rows,
+            "u": whole.cpu() if group is None or group.rank == 0 else None}
+
+
+def _perturbed(system, st, eps: float, seed: int):
+    """`st` with u scaled by (1 + eps * noise): standard normal noise over
+    the whole grid from `seed`, each rank keeping its rows."""
+    whole = system.gather_state(st.u)
+    noise = np.random.default_rng(seed).standard_normal(tuple(whole.shape))
+    u = whole * (1.0 + eps * torch.as_tensor(noise, device=whole.device,
+                                             dtype=whole.dtype))
+    return dataclasses.replace(st, u=system.place_state(u))
+
+
+def krylov_spread(group, spec: dict) -> list:
+    """The port's own spread of a march's counts on one card: `spec`'s
+    march (`slab_march` without a group, on spec `device`, or on this
+    rank's card) again for each (eps, seed) of spec["perturbations"],
+    the state perturbed (`_perturbed`) before plan item spec["before"].
+    Per run: eps, seed and per item the Krylov iterations (BiCGStab and
+    GMRES summed), the Newton iterations and the accepted count. With a
+    group each rank adds 1000 times its rank to the seeds (its own noise)."""
+    dev = spec.get("device", group.device if group is not None else None)
+    shift = 1000 * group.rank if group is not None else 0
+    out = []
+    for eps, seed in spec["perturbations"]:
+        seed += shift
+        r = slab_march(None, {**spec, "device": str(dev),
+                              "perturb": (eps, seed, spec["before"])})
+        out.append({"eps": eps, "seed": seed,
+                    "krylov": [row["bicgstab_iterations"]
+                               + row["gmres_iterations"]
+                               for row in r["rows"]],
+                    "newton": [row["newton_iterations"]
+                               for row in r["rows"]],
+                    "n_accepted": [row["n_accepted"] for row in r["rows"]]})
+    return out
+
+
+def slab_march_one_rank(group, spec: dict) -> dict:
+    """`slab_march` on z-slabs over a one-rank group on this rank's card
+    (spec `device` without a group): the slab code with every collective
+    the identity, which must march as one card does, bit for bit."""
+    from .ranks import one_rank
+
+    dev = group.device if group is not None else torch.device(
+        spec["device"])
+    with one_rank(dev) as g1:
+        return slab_march(g1, spec)
+
+
+def shard(group, spec: dict) -> dict:
+    """The round-1 sharded system (`CoupledSystem.shard`) of a streamer
+    model (`slab_model`'s spec, without the structured assembly) at
+    spec `u` (whole-grid numpy state, float64): the residual at u, the
+    node blocks at delta = 0 and one step at spec `params`, all whole (the
+    same on every rank)."""
+    from ..model.system import StepParams
+    from ..models.streamer import StreamerConfig, StreamerModel
+
+    dev = group.device
+    m = StreamerModel(StreamerConfig(**spec.get("cfg", {})), device=dev)
+    m.system.shard(group)
+    u = torch.as_tensor(spec["u"], device=dev)
+    p = StepParams(*spec["params"])
+    F = m.system.residual(u, u, u, p)
+    B = m.system.operators(u, u, p).jacobian_blocks(torch.zeros_like(u))
+    u1, info = m.system.step(u, u, u, {}, p)
+    return {"rank": group.rank, "F": F.cpu(), "B": B.cpu(), "u": u1.cpu(),
+            "converged": bool(info.converged), "iters": int(info.iters),
+            "launches": [b.scatter_idx is not None
+                         for b, _ in m.system._shard[1]]}
+
+
+def on_one_rank(group, spec: dict):
+    """`spec["worker"]` with `spec["spec"]` on rank `spec["rank"]` alone, as
+    one card without the group (a one-card reference on that rank's card);
+    None on the other ranks."""
+    if group.rank != spec["rank"]:
+        return None
+    return globals()[spec["worker"]](None, {**spec["spec"],
+                                            "device": str(group.device)})
+
+
+def slab_units(group, spec: dict) -> dict:
+    """The slab pieces of a seeded grid (spec: n_i, n_j, levels, seed) on
+    this rank's slab, each beside the whole-grid operation's own rows: the
+    state's halo fill, the 9-point stencil matvec with halo rows, the
+    z-line (PCR) solve of a gathered right-hand side, the restriction and
+    the prolongation along z."""
+    from ..fem.interpolation import prolong_axis, restrict_axis
+    from ..solvers.linesmoother import tridiag_solve_pcr
+    from ..solvers.stencil import stencil_matvec
+    from ..solvers.structured_mg import StructuredPoissonMG
+    from .slabs import SlabPoissonMG, Slabs
+
+    dev = group.device
+    rng = np.random.default_rng(spec.get("seed", 0))
+    n_i, n_j, L = spec["n_i"], spec["n_j"], spec["levels"]
+    xs = np.cumsum(rng.uniform(0.5, 1.5, n_i))
+    zs = np.cumsum(rng.uniform(0.5, 1.5, n_j))
+    mask = np.zeros((n_i, n_j), bool)
+    mask[:, 0] = mask[:, -1] = True
+    mg = StructuredPoissonMG(xs, zs, mask, L, dtype=torch.float64,
+                             device=dev)
+    sl = Slabs(group, n_i, n_j, L)
+    smg = SlabPoissonMG(mg, sl)
+    lo, hi = sl.lo, sl.hi
+    put = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    u = put(rng.standard_normal((n_j * n_i, 3)))
+    X = put(rng.standard_normal((n_i, n_j)))
+    n_c = mg._shapes[1][1]
+    Uc = put(rng.standard_normal((n_i, n_c)))
+    clo, chi = sl.layout.rows(group.rank, 1)
+    S = mg.S[0]
+    pairs = {
+        "fill": (sl.fill(sl.own(u)), u[sl.a * n_i:sl.b * n_i]),
+        "stencil": (stencil_matvec(S[..., lo:hi], sl.halo(
+            X[:, lo:hi], dim=-1, zeros=True), halo=True),
+            stencil_matvec(S, X)[:, lo:hi]),
+        "pcr": (smg._smooth_full(0, X[:, lo:hi]),
+                tridiag_solve_pcr(S[1, 0], S[1, 1], S[1, 2], X)),
+        "restrict": (smg._restrict_z(0, X[:, lo:hi]),
+                     restrict_axis(X, mg.wz[0])[:, clo:chi]),
+        "prolong": (smg._prolong_z(0, Uc[:, clo:chi]),
+                    prolong_axis(Uc, mg.wz[0])[:, lo:hi])}
+    return {"rank": group.rank, "rows": (lo, hi),
+            "equal": {k: bool(torch.equal(a, b))
+                      for k, (a, b) in pairs.items()}}

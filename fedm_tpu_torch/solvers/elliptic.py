@@ -38,7 +38,7 @@ def solve_poisson(batch: CellBatch, f_q: torch.Tensor, mask: torch.Tensor,
                   g: torch.Tensor, coeff_q: Optional[torch.Tensor] = None,
                   x0: Optional[torch.Tensor] = None, tol: float = 1e-10,
                   maxiter: int = 2000,
-                  precond: Optional[Callable] = None):
+                  precond: Optional[Callable] = None, slabs=None):
     """Solve integral(c grad u . grad v) = integral(f v) with u = g on the
     `mask` dofs.
 
@@ -46,29 +46,36 @@ def solve_poisson(batch: CellBatch, f_q: torch.Tensor, mask: torch.Tensor,
     [n_dofs]. `precond` (r -> ~A^-1 r, e.g. the structured multigrid's
     V-cycle) replaces the default Jacobi, which can exhaust `maxiter` on
     anisotropic corridor meshes. Each operator application runs in the
-    promoted type of the batch and its operand. Returns
-    (u, relres, iters)."""
+    promoted type of the batch and its operand. With `slabs`
+    (`parallel.slabs.Slabs`) the batch is this rank's slab view, mask, g
+    and the solution are its node rows, and CG reduces over the slabs'
+    group. Returns (u, relres, iters)."""
+    if slabs is None:
+        fill = keep = (lambda x: x)
+    else:
+        fill, keep = slabs.fill, (lambda r: r[slabs.own_ext])
 
     def A(x):
         bx = _promoted(batch, x)
-        G = bx.grad(bx.gather(x))  # [c, q, dim]
+        G = bx.grad(bx.gather(fill(x)))  # [c, q, dim]
         if coeff_q is not None:
             G = G * coeff_q[:, :, None]
-        return bx.scatter(bx.stiffness(G))
+        return keep(bx.scatter(bx.stiffness(G)))
 
     def op(v):
         return torch.where(mask, v, A(torch.where(mask, 0.0, v)))
 
     g_ext = torch.where(mask, g, 0.0)
     bf = _promoted(batch, f_q)
-    b = bf.scatter(bf.mass(f_q))
+    b = keep(bf.scatter(bf.mass(f_q)))
     rhs = torch.where(mask, 0.0, b - A(g_ext))
 
-    diag = stiffness_diagonal(batch, coeff_q)
+    diag = keep(stiffness_diagonal(batch, coeff_q))
     diag = torch.where(mask | (diag == 0), 1.0, diag)
 
     z0 = None if x0 is None else torch.where(mask, 0.0, x0 - g_ext)
     M = precond if precond is not None else (lambda r: r / diag)
     z, relres, iters = cg(op, rhs, x0=z0, precond=M, tol=tol,
-                          maxiter=maxiter)
+                          maxiter=maxiter,
+                          group=None if slabs is None else slabs.group)
     return g_ext + torch.where(mask, 0.0, z), relres, iters

@@ -34,12 +34,21 @@ def canonical_node_grid(space):
     return J * len(xs) + I
 
 
-def stencil_matvec(S: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+def stencil_matvec(S: torch.Tensor, X: torch.Tensor,
+                   halo: bool = False) -> torch.Tensor:
     """9-point stencil matvec in grid layout: X, result [..., n_i, n_j]
-    (leading dims are independent right-hand sides)."""
-    n_i, n_j = X.shape[-2:]
-    P = F.pad(X, (1, 1, 1, 1))
-    out = torch.zeros_like(X)
+    (leading dims are independent right-hand sides). With `halo`, X
+    carries one more j-column on each side [..., n_i, n_j + 2] (a z-slab's
+    neighbour rows, zeros beyond the grid) and the result is the slab's
+    [..., n_i, n_j], each entry summed as on the whole grid."""
+    if halo:
+        n_i, n_j = X.shape[-2], X.shape[-1] - 2
+        P = F.pad(X, (0, 0, 1, 1))
+    else:
+        n_i, n_j = X.shape[-2:]
+        P = F.pad(X, (1, 1, 1, 1))
+    out = torch.zeros(tuple(X.shape[:-1]) + (n_j,), dtype=X.dtype,
+                      device=X.device)
     for di in (-1, 0, 1):
         for dj in (-1, 0, 1):
             out = out + S[di + 1, dj + 1] * P[..., 1 + di:1 + di + n_i,

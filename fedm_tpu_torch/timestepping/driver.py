@@ -138,6 +138,16 @@ class AdaptiveDriver:
         self.predictor = predictor
 
     def _die(self, state: TimeState, n_rejected: int, msg: str):
+        # a system on z-slabs holds its rank's rows: every rank gathers the
+        # whole state (a collective), the rank given a crash checkpoint
+        # writes it
+        whole = getattr(self.system, "gather_state", None)
+        if whole is not None and getattr(self.system, "slabs", None):
+            state = TimeState(u=whole(state.u), u_old=whole(state.u_old),
+                              u_old1=whole(state.u_old1), t=state.t,
+                              dt=state.dt, dt_old=state.dt_old,
+                              max_error=state.max_error,
+                              n_accepted=state.n_accepted)
         if self.crash_checkpoint is not None:
             from ..io.checkpoint import save_checkpoint
 

@@ -1,7 +1,10 @@
 """The port's entry point `python -m fedm_tpu_torch.bagheri_run`: its
-presets are the JAX tool's (`tools/bagheri_run.py`), --devices > 1 is
-refused with the slice that brings it, every other option of the JAX tool
-builds and steps a small run (the `bagheri14` preset as written, with its
+presets are the JAX tool's (`tools/bagheri_run.py`); --devices N runs N
+gloo ranks on z-slabs here, rank 0's checkpoint held to the one-process
+run's, and refuses what has no z-slab form (--precond mg, pointing at
+ROADMAP.md; the direct rescue, single-card as in the JAX tool) and more
+ranks than cards; every other option of the JAX tool builds and steps a
+small run (the `bagheri14` preset as written, with its
 direct rescue, at full size), and a CPU run on a small moving window
 (float32 with the float64 defect, the bagheri14 solver options) starts
 from t = 0, moves its window, writes checkpoints with meta and logs, and
@@ -42,14 +45,26 @@ def test_preset_typo_is_refused(monkeypatch, capsys):
     assert "unknown keys: ['windw_span']" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv,slice_", [
-    (["--devices", "2"], "slice 12"),
+@pytest.mark.parametrize("argv,where", [
+    (["--devices", "2", "--precond", "mg"], "ROADMAP.md section 1"),
 ], ids=["devices"])
-def test_options_not_ported_are_refused(argv, slice_, capsys):
+def test_options_not_ported_are_refused(argv, where, tmp_path):
+    """--devices > 1 runs, but not with an option that has no z-slab form:
+    it raises before any rank starts, and says where the work is queued."""
+    with pytest.raises(NotImplementedError, match=where):
+        bagheri_run.main(["--out", str(tmp_path), "--device", "cpu", *argv])
+
+
+def test_devices_refuses_the_direct_rescue_and_more_ranks_than_cards(
+        tmp_path, capsys):
     with pytest.raises(SystemExit):
-        bagheri_run.parse_args(["--out", "x", *argv])
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and slice_ in err
+        bagheri_run.parse_args(["--out", "x", "--devices", "2",
+                                "--preset", "bagheri14"])
+    assert "--direct-rescue is single-card" in capsys.readouterr().err
+    # one rank per card: this machine has no CUDA device at all
+    with pytest.raises(ValueError, match="CUDA devices, one each"):
+        bagheri_run.main(["--out", str(tmp_path), "--devices", "5",
+                          "--no-direct-rescue", "--preset", "bagheri14"])
 
 
 def test_direct_rescue_needs_no_fallback(capsys):
@@ -194,3 +209,32 @@ def test_run_moves_the_window_checkpoints_and_resumes(tmp_path, monkeypatch,
     assert state.n_accepted == 5
     assert float(meta["z_corridor"][2]) == 5e-5
     assert np.isfinite(state.u.numpy()).all()
+
+
+def test_devices_on_ranks_matches_one_process(tmp_path, capfd):
+    """--devices 2 --device cpu: two gloo ranks on z-slabs take the small
+    window's first steps; rank 0 prints the reports and writes the
+    checkpoint (the gathered state) and the logs, held to the one-process
+    run's: the same counts and t, the fields at
+    tests/parallel/test_gspmd_production.py's rtol 5e-5, atol 1e-7."""
+    argv = [a for a in SMALL_RUN if a != "--diag-guards"] + [
+        "--max-steps", "2"]
+    assert bagheri_run.main([*argv, "--out", str(tmp_path / "one")]) == 0
+    assert bagheri_run.main([*argv, "--devices", "2", "--out",
+                             str(tmp_path / "two")]) == 0
+    log = capfd.readouterr().out
+    assert "2 ranks on z-slabs, node rows [16, 17]" in log
+    one, meta1 = load_checkpoint(tmp_path / "one" / "checkpoint.npz",
+                                 device="cpu", with_meta=True)
+    two, meta2 = load_checkpoint(tmp_path / "two" / "checkpoint.npz",
+                                 device="cpu", with_meta=True)
+    assert (two.n_accepted, two.n_rejected) == (one.n_accepted,
+                                                one.n_rejected) == (2, 0)
+    assert two.t == pytest.approx(one.t, rel=1e-12)
+    for f in ("u", "u_old", "u_old1"):
+        np.testing.assert_allclose(getattr(two, f).numpy(),
+                                   getattr(one, f).numpy(), rtol=5e-5,
+                                   atol=1e-7)
+    assert list(meta2["z_corridor"]) == list(meta1["z_corridor"])
+    newton = (tmp_path / "two" / "newton.log").read_text().splitlines()
+    assert [line.split()[0] for line in newton] == ["1", "2"]

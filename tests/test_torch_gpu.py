@@ -305,6 +305,52 @@ def test_two_rank_dd_residual(cuda):
     assert k1["max_abs_err"] <= 1e-13 * k1["scale"]
 
 
+def test_two_card_slab_residual_and_vcycle(cuda):
+    """The miniature production model on z-slabs over 2 ranks, one per
+    card (NCCL), against one card and against the same 2 ranks emulated as
+    threads on one card (`slab_probe.probe`: each rank at its own counts,
+    no value crossing a card). The ranks equal their emulation bit for
+    bit. One V-cycle equals one card's bit for bit (its stencils need no
+    einsum); the residual, the float64 defect, J v, the node blocks, the
+    z-line solve and the whole preconditioner equal one card's bit for
+    bit, or the probe shows the difference to be count rounding alone
+    (the first op off is a batched GEMM at equal inputs: cuBLAS picks its
+    kernel by the batch count) and they hold per column
+    (`slab_probe.judge`). The controls fail that hold: the residual
+    without the halo row from below, the same in its Poisson row alone,
+    every operator's one-card result rounded to bfloat16, the float32
+    residual as the float64 defect."""
+    _two_cards()
+    from fedm_tpu_torch.parallel import rank_checks, ranks
+    from fedm_tpu_torch.parallel.slab_probe import (OPS, anchor_of, case,
+                                                    judge, probe)
+
+    spec, R = case("mini")
+    res = ranks.launch(rank_checks.slab_ops, R, "cuda", (spec,),
+                       timeout=300)
+    assert [o["card"]["device"] for o in res] == ["cuda:0", "cuda:1"]
+    emu = probe(spec, R, cuda, keep=True)
+    one = emu["_one"]
+
+    def held(k, x):
+        return judge(x, one[k], anchor_of(k, one))
+
+    for k in OPS:
+        got = torch.cat([o[k] for o in res])
+        assert torch.equal(got, torch.cat([o[k] for o in emu["_ranks"]])), k
+        assert torch.equal(got, one[k]) or (emu["exempt"][k]
+                                            and held(k, got)["ok"]), (
+            k, emu["exempt"][k], held(k, got), emu["kernels"])
+        assert not held(k, one[k].to(torch.bfloat16))["ok"], k
+    assert emu["exempt"]["V"] is False
+    control = torch.cat([o["control_F"] for o in res])
+    assert not held("F", control)["ok"]
+    poisson = torch.cat([o["F"] for o in res])
+    poisson[:, 2] = control[:, 2]
+    assert not held("F", poisson)["ok"]
+    assert not held("F64", one["F"].double())["ok"]
+
+
 def _window_model(device):
     cfg = StreamerConfig(z_corridor=(8.5e-3, 1e-2, 5e-5),
                          r_corridor=(2e-3, 2e-4), z_tail_cells=(12, 12),

@@ -37,10 +37,13 @@ the JAX package on the same state) from the problem's own sensitivity
 
 With --perturb EPS... the JAX package takes one advance from its moved
 state and then its second advance again from that state with u scaled
-by (1 + EPS * noise) for each EPS, one JSON line each.
+by (1 + EPS * noise) for each EPS, one JSON line each; with
+--perturb-advance 1 it takes instead its first advance from the moved
+state so scaled (the spread `chip_smoke.py` phase 12 holds the window's
+first advance on z-slabs to).
 
     JAX_PLATFORMS=cpu python tools/port_reference_window.py [--port] \
-        [--advances N] [--perturb EPS ...]
+        [--advances N] [--perturb EPS ...] [--perturb-advance 1|2]
 """
 
 import argparse
@@ -189,12 +192,13 @@ def port_advances(model, s, n: int, origin: str, first: int = 1) -> None:
                                             counts, t0)), flush=True)
 
 
-def jax_perturbed(model, s, eps_list) -> None:
+def jax_perturbed(model, s, eps_list, advance: int = 2) -> None:
     """One JAX advance from `s`, then the second advance again from that
     state with u scaled by (1 + eps * noise) for each eps (standard normal
     noise from one seeded generator), one JSON line each: how far the
     reference's own iteration counts move under perturbations far below
-    the gaps between the two packages' states."""
+    the gaps between the two packages' states. With `advance` 1 the first
+    advance, from `s` so scaled."""
     import dataclasses
 
     import jax
@@ -208,7 +212,7 @@ def jax_perturbed(model, s, eps_list) -> None:
             post_accept=model.floor_projection(), fail_dt_cap=0.7,
             predictor=1.0)
 
-    s1 = driver().advance(s, {})
+    s1 = driver().advance(s, {}) if advance == 2 else s
     rng = np.random.default_rng(0)
     for eps in eps_list:
         u = np.asarray(s1.u) * (1 + eps * rng.standard_normal(s1.u.shape))
@@ -216,8 +220,8 @@ def jax_perturbed(model, s, eps_list) -> None:
         t0 = time.perf_counter()
         out = driver().advance(dataclasses.replace(s1, u=jnp.asarray(u)), {})
         jax.effects_barrier()
-        rec = advance_record("jax", "jax, perturbed", 2, out, _JAX_COUNTS,
-                             t0)
+        rec = advance_record("jax", "jax, perturbed", advance, out,
+                             _JAX_COUNTS, t0)
         print(json.dumps({"eps": eps, **rec}), flush=True)
 
 
@@ -298,6 +302,10 @@ def main():
                     help="then the JAX package's second advance from its "
                          "own state perturbed by each of these relative "
                          "sizes")
+    ap.add_argument("--perturb-advance", type=int, default=2,
+                    choices=[1, 2],
+                    help="with --perturb: the advance that starts from the "
+                         "perturbed state")
     ap.add_argument("--advances", type=int, default=0,
                     help="with --port: then take this many advances in "
                          "each package from each moved state")
@@ -326,7 +334,7 @@ def main():
     print(json.dumps(out), flush=True)
     if opts.perturb:
         count_jax_iterations()
-        jax_perturbed(model, moved, opts.perturb)
+        jax_perturbed(model, moved, opts.perturb, opts.perturb_advance)
     if not opts.port:
         return
     gaps, port_model, port_moved = port_gaps(out)
