@@ -5,8 +5,9 @@ that `bench.py` times, the streamer from t = 0 on its moving window with
 the direct rescue, the argon glow, the streamer's option paths, the
 time-of-flight verification runs (1D P2 and 2D axisymmetric) with their
 entry point, the extended reaction scheme under the DOF-partitioned
-domain decomposition with its entry point, the batched parameter sweep,
-the streamer example and the domain decomposition at scale; where the
+domain decomposition with its entry point, the batched parameter sweep
+and its option paths, the streamer example, the post-processing entry
+points and the domain decomposition at scale; where the
 machine has two cards or more, the domain decomposition and the sweep on
 distinct cards, one rank (process) each, and the structured streamer on
 z-slabs, one rank per card.
@@ -14,6 +15,14 @@ z-slabs, one rank per card.
     python3 chip_smoke.py                # every phase; one card needed
     python3 chip_smoke.py --only cards   # phases 0, 1, 11 and 12
     python3 chip_smoke.py --only slabs   # phases 0, 1 and 12 alone
+    python3 chip_smoke.py --only window  # phases 0, 1, 4 and 4b alone
+
+The full run drives its phases in two processes on the card: phases 4
+and 4b run as `--only window` beside phases 5-10, and the processes that
+phases 7, 8, 9a, 10 and 13 start (entry points as a user runs them) run
+beside the phase that starts them or beside 9b. Their host work, most of
+each path's time, then overlaps; the times each phase reports are taken
+with the others running.
 
 Phases (each reports its elapsed seconds on stderr):
   0. device: a CUDA device must be present, else exit 1 with no result;
@@ -37,8 +46,8 @@ Phases (each reports its elapsed seconds on stderr):
      initial state and first residual held to the JAX package's numbers
      (tools/port_reference_window.py), the window moved and the remapped
      state and its residual held to them too, K1 inside the moved
-     residual against its plain version (exactly), then 10 adaptive
-     advances (4 on a slower host: N_LEAST_ADVANCES) with K1's launch
+     residual against its plain version (exactly), then 4 adaptive
+     advances with K1's launch
      counter reset just before and read just after; the third runs
      BiCGStab to its cap and then the GMRES fallback, which must run;
   5. the glow: the argon glow discharge at the `glow50` protocol of
@@ -49,8 +58,8 @@ Phases (each reports its elapsed seconds on stderr):
      float64 residual, each held to the JAX package's numbers
      (tools/port_reference_glow.py), each residual tolerance shown to
      refuse the residual evaluated in float32; K1 inside the probe
-     residual against the plain scatter; then 10 adaptive advances (4 on
-     a slower host), each of which must land, with K1's launch counter
+     residual against the plain scatter; then 4 adaptive advances, each
+     of which must land, with K1's launch counter
      reset just before and read just after, which must show launches of
      K1's dense form (the unstructured cell scatter);
   4b. rescue: the host sparse-direct Newton on phase 4's moved state (the
@@ -113,7 +122,7 @@ Phases (each reports its elapsed seconds on stderr):
      13,041 dofs and 39,123 unknowns each, 312,984 in the batch, float64,
      "mg"), seed amplitudes geomspace(1e18, 2e19, 8): the members'
      initial states, K1's launches per batched Krylov iteration at B = 1
-     and B = 8 (equal), then 3 lockstep attempts and `run_until` 2e-11
+     and B = 8 (equal), then 3 lockstep attempts and `run_until` 7e-12
      with K1's launch counter reset just before and read just after, held
      per member to tools/port_reference_sweep.py's JAX numbers (counts,
      t, dt, max_error, the states' column norms); each member's first
@@ -121,10 +130,36 @@ Phases (each reports its elapsed seconds on stderr):
      same Newton iterations), with the batch's wall time beside the 8
      single steps'; the control (one Newton-BiCGStab over the stacked
      members, scalars shared) must fail the tolerances;
-  9b. the streamer example: `python -m fedm_tpu_torch.examples.streamer
+  9a. the streamer example: `python -m fedm_tpu_torch.examples.streamer
      --quick -T 2e-11` as a process, its output tree, last line and
      `relative error.log` held to the JAX example's
      (tools/port_reference_streamer_example.py);
+  9b. the sweep's option paths: phase 9's B = 8 members under the
+     transport z-lines (`tzline`: poisson_precond "mg-zline",
+     transport_zline, float64) and under row equilibration in float32
+     (`row_scaled_f32`), the configurations of
+     tools/port_reference_options.py, from phase 9's initial states; for
+     each, 2 lockstep attempts with K1's launch counter reset just before
+     and read just after (the dense in-place form on the stacked cell
+     table, the compact form on the facets), held per member to
+     tools/port_reference_sweep.py --config's JAX numbers (the first
+     attempt's verdicts and Newton iterations, counts, t, dt, max_error,
+     the column norms; counts equal or inside the JAX package's own
+     spread); each member's first attempt against the single-system step
+     (the same verdict, Newton and Krylov iterations, the state within a
+     stated rtol), the batch's wall time beside the 8 single steps'; the
+     control (the first attempt with the option off: no z-line solves, or
+     no row weights) must fail both tolerances;
+  13. post-processing (its processes run beside phase 9b): seeded run
+     directories (tools/series_checkpoints.py: a streamer trail at the
+     bagheri14 window, 30,305 dofs, on two corridors, with a reused mesh,
+     a skipped dof mismatch and a duplicate; a glow50 run, 64 x 64, 8,321
+     dofs) through `python -m fedm_tpu_torch.export_series` (both models)
+     and `python -m fedm_tpu_torch.glow_report` as processes on the card,
+     every VTU's per-field norms, the streamer's printed lines and
+     `fields.pvd`, and the report's summary held to the JAX tools'
+     (tools/port_reference_series.py); the same states rounded to float32
+     must fail those tolerances;
   10. dd_scale: `python -m fedm_tpu_torch.dd_scale` as a process at its
      defaults (280 x 560, 472,923 unknowns, 8 parts stacked on the card,
      2 steps, then the same steps undistributed; a one-rank group):
@@ -271,22 +306,11 @@ WINDOW_MOVED_RESIDUAL_RTOL = (5e-11, 2e-8, 5e-5)
 # cap, then GMRES: 44-89 s on the H100), the problem's sensitivity
 # (PERF.md, sec. 6), and the only place where the card runs the GMRES
 # fallback
-N_WINDOW_ADVANCES = 10
-# The depth of the window, the glow and the sweep's profile follows the
-# host. The host's pace is read once, where the window's first
-# N_LEAST_ADVANCES advances end (the third, the GMRES one, is among
-# them): by FULL_DEPTH_PACE_S there, the window and the glow take all
-# their advances and the sweep profiles SWEEP_PROFILED_ITERS iterations;
-# later, N_LEAST_ADVANCES advances each and SWEEP_PROFILED_ITERS_LEAST.
-# My chip runs of PR 12 (one H100, 700 W): hosts that reached that point
-# at 129.9-148.1 s ran the whole script in 441.9-493.6 s at 6 advances
-# (~490-545 s at full depth); hosts at 175.7-215.6 s took 503.5-551.1 s at
-# 4-6 advances and ran past the 600 s budget at full depth (runs 1 and
-# 21: the sweep reached at 367 and 429 s). The results line says which
-# (`"depth"`).
-N_LEAST_ADVANCES = 4
-FULL_DEPTH_PACE_S = 160
-_depth = {"full": True}
+# The window and the glow take 4 advances each (the third of the window
+# is the GMRES one), and the sweep profiles 5 Krylov iterations: the depth
+# slower hosts ran before, now on every host, so that phases 9b and 13
+# fit the budget (PERF.md, sec. 6)
+N_WINDOW_ADVANCES = 4
 # The glow's reference numbers, computed with the JAX package on the CPU by:
 #   JAX_PLATFORMS=cpu python tools/port_reference_glow.py
 # (per-column 2-norms of the state u = [ln w_e, ln n_Ar*, ln n_Ar+, ln n_e,
@@ -338,7 +362,7 @@ GLOW_STATE_RTOL = (1e-14,) * 5
 GLOW_INITIAL_RESIDUAL_RTOL = (5e-13, 2e-15, 4e-15, 1e-13, 1e-15)
 GLOW_AUX_RTOL = {"redE": 1e-7, "k": 1e-14, "mu": 1e-8, "D": 1e-8}
 GLOW_PROBE_RESIDUAL_RTOL = (1e-12, 1e-15, 1e-8, 1e-11, 1e-15)
-N_GLOW_ADVANCES = 10
+N_GLOW_ADVANCES = 4
 # The rescue's and the options' reference numbers, computed with the JAX
 # package on the CPU by:  JAX_PLATFORMS=cpu python
 # tools/port_reference_options.py (see its docstring for what each is)
@@ -570,121 +594,115 @@ EXT_STEP_RTOL, EXT_STEP_ATOL = 1e-6, 1e-10
 EXT_PROFILED_ITERS = 20
 # The batched sweep's reference numbers (phase 9), computed with the JAX
 # package on the CPU by:  JAX_PLATFORMS=cpu python
-# tools/port_reference_sweep.py  (BatchedSweep over B = 8 members of the
-# default StreamerConfig, graded 80 x 160, float64, "mg", seed amplitudes
-# geomspace(1e18, 2e19, 8); per member the initial states' column norms,
+# tools/port_reference_sweep.py --horizon 7e-12  (BatchedSweep over B = 8
+# members of the default StreamerConfig, graded 80 x 160, float64, "mg",
+# seed amplitudes geomspace(1e18, 2e19, 8); per member the initial states'
+# column norms,
 # the first attempt's Newton iterations, and after each of 3 attempts and
-# after run_until(2e-11): the counts, t, dt, max_error and the state's
+# after run_until(7e-12): the counts, t, dt, max_error and the state's
 # column norms)
 SWEEP_B = 8
 SWEEP_AMPS = tuple(float(a) for a in np.geomspace(1e18, 2e19, SWEEP_B))
 SWEEP_ATTEMPTS = 3
-SWEEP_HORIZON = 2e-11
-SWEEP_PROFILED_ITERS, SWEEP_PROFILED_ITERS_LEAST = 20, 5
-REF_SWEEP = {
-    "initial": [[3470.6365421583196, 3418.3339510248147,
-        1457347.647546141], [3474.597419825185, 3418.3339510248147,
-        1462778.6890561387], [3478.7126715510462, 3418.3339510248147,
-        1471214.177333928], [3482.982836578452, 3418.3339510248147,
-        1484394.6485969678], [3487.4084310308826, 3418.3339510248147,
-        1505162.725875443], [3491.989947606089, 3418.3339510248147,
-        1538256.4867449312], [3496.727854222533, 3418.3339510248147,
-        1591734.0881322925], [3501.622594770474, 3418.3339510248147,
-        1679492.8472147426]],
-    "first_newton": [2, 2, 2, 2, 3, 4, 5, 2],
-    "attempts": [
-        {"n_accepted": [1, 1, 1, 1, 1, 0, 0, 0], "n_rejected": [0, 0, 0, 0,
-            0, 1, 1, 1], "t": [5e-12, 5e-12, 5e-12, 5e-12, 5e-12, 0.0, 0.0,
-            0.0], "dt": [5e-12, 5e-12, 5e-12, 5e-12, 5e-12,
-            2.3585968904357434e-12, 8.79836158028602e-13, 2.5e-12],
-            "max_error": [[1.128420924710868e-05, 1.0, 1.0],
-            [1.8698382577412658e-05, 1.0, 1.0], [4.1214097101459843e-05, 1.0,
-            1.0], [0.00011924570693360585, 1.0, 1.0], [0.00036190281663142095,
-            1.0, 1.0], [1.0, 1.0, 1.0], [1.0, 1.0, 1.0], [1.0, 1.0, 1.0]],
-            "u_norms": [[3470.62071836914, 3418.3211229818135,
-            1457347.6470622402], [3474.581680576234, 3418.324690662721,
-            1462778.6883072914], [3478.6970447070794, 3418.334725896549,
-            1471214.1761804945], [3482.96740837496, 3418.3699479073084,
-            1484394.646900831], [3487.3935388679633, 3418.4953069502662,
-            1505162.724336324], [3491.989947606089, 3418.3339510248147,
-            1538256.4867449312], [3496.727854222533, 3418.3339510248147,
-            1591734.0881322925], [3501.622594770474, 3418.3339510248147,
-            1679492.8472147426]]},
-        {"n_accepted": [2, 2, 2, 2, 2, 1, 1, 0], "n_rejected": [0, 0, 0, 0,
-            0, 1, 1, 2], "t": [1e-11, 1e-11, 1e-11, 1e-11, 1e-11,
-            2.3585968904357434e-12, 8.79836158028602e-13, 0.0], "dt": [5e-12,
-            5e-12, 5e-12, 5e-12, 5e-12, 5e-12, 1.894247447649398e-12,
-            3.7561741769392476e-13], "max_error": [[1.1279008641139489e-05,
-            1.128420924710868e-05, 1.0], [1.8684676358422563e-05,
-            1.8698382577412658e-05, 1.0], [4.1184020603769915e-05,
-            4.1214097101459843e-05, 1.0], [0.00011915863800082703,
-            0.00011924570693360585, 1.0], [0.00036154607757241255,
-            0.00036190281663142095, 1.0], [0.0005005011274032053, 1.0, 1.0],
-            [0.0005010323302952167, 1.0, 1.0], [1.0, 1.0, 1.0]], "u_norms":
-            [[3470.6048945917896, 3418.308291868667, 1457347.646577729],
-            [3474.565941337195, 3418.3154228295452, 1462778.6875570829],
-            [3478.6814178717427, 3418.335484578445, 1471214.1750195648],
-            [3482.951980197284, 3418.405923009409, 1484394.6451268154],
-            [3487.378646970417, 3418.656819664002, 1505162.721968605],
-            [3491.9838532686344, 3418.596297707631, 1538256.4874371167],
-            [3496.727028424328, 3418.6229871642245, 1591734.0899492034],
-            [3501.622594770474, 3418.3339510248147, 1679492.8472147426]]},
-        {"n_accepted": [3, 3, 3, 3, 3, 1, 1, 1], "n_rejected": [0, 0, 0, 0,
-            0, 2, 2, 2], "t": [1.5e-11, 1.5e-11, 1.5e-11, 1.5e-11, 1.5e-11,
-            2.3585968904357434e-12, 8.79836158028602e-13,
-            3.7561741769392476e-13], "dt": [5e-12, 5e-12, 5e-12, 5e-12, 5e-12,
-            2.3590461242830997e-12, 8.785886218166888e-13,
-            8.088308259693599e-13], "max_error": [[1.5031747653368251e-05,
-            1.1279008641139489e-05, 1.128420924710868e-05],
-            [2.489464221946286e-05, 1.8684676358422563e-05,
-            1.8698382577412658e-05], [5.487212158158691e-05,
-            4.1184020603769915e-05, 4.1214097101459843e-05],
-            [0.00015877853840812282, 0.00011915863800082703,
-            0.00011924570693360585], [0.0004815871755214016,
-            0.00036154607757241255, 0.00036190281663142095],
-            [0.0005005011274032053, 1.0, 1.0], [0.0005010323302952167, 1.0,
-            1.0], [0.0005006904853867972, 1.0, 1.0]], "u_norms":
-            [[3470.5837962392766, 3418.2911797127513, 1457347.6459311622],
-            [3474.544955699958, 3418.303056023337, 1462778.6865547558],
-            [3478.660582104584, 3418.3364759040924, 1471214.1734573292],
-            [3482.9314093307744, 3418.4538757248215, 1484394.6426010332],
-            [3487.358791480457, 3418.8724749865837, 1505162.716950368],
-            [3491.9838532686344, 3418.596297707631, 1538256.4874371167],
-            [3496.727028424328, 3418.6229871642245, 1591734.0899492034],
-            [3501.624979565057, 3418.6487052615566, 1679492.849753184]]},
-    ],
-    "run_until": {"n_accepted": [4, 4, 4, 4, 4, 8, 25, 55], "n_rejected":
-        [0, 0, 0, 0, 0, 2, 3, 4], "t": [2e-11, 2e-11, 2e-11, 2e-11, 2e-11,
-        2e-11, 2e-11, 2e-11], "dt": [5e-12, 5e-12, 5e-12, 5e-12, 5e-12,
-        2.3438466535728455e-12, 8.051997871666522e-13, 3.4926539117132624e-13],
-        "max_error": [[1.6273417998001068e-05, 1.5031747653368251e-05,
-        1.1279008641139489e-05], [2.694028640648692e-05, 2.489464221946286e-05,
-        1.8684676358422563e-05], [5.938147781757082e-05, 5.487212158158691e-05,
-        4.1184020603769915e-05], [0.000171837785620674, 0.00015877853840812282,
-        0.00011915863800082703], [0.0005209722970614367, 0.0004815871755214016,
-        0.00036154607757241255], [0.0008156640208461093, 0.0009938556039368067,
-        0.0009384956926494792], [0.0008402707685804429, 0.0009607194156789653,
-        0.0009541873501401064], [0.0007419768583332746, 0.0009579475232840766,
-        0.0009660670623658129]], "u_norms": [[3470.5609397147896,
-        3418.2726350285398, 1457347.6452302402], [3474.52222127965,
-        3418.289642767993, 1462778.685467072], [3478.638010040899,
-        3418.337515058068, 1471214.1717516365], [3482.909124280958,
-        3418.5057758885005, 1484394.6397102675], [3487.3372819719384,
-        3419.106380189657, 1505162.7095425331], [3491.915267669831,
-        3421.590508742324, 1538256.2959095], [3496.6955088159143,
-        3430.7488933008854, 1591720.5673689772], [3502.244978036839,
-        3453.715268604512, 1662547.3885003712]], "attempts": 56}}
+SWEEP_HORIZON = 7e-12
+SWEEP_PROFILED_ITERS = 5
+REF_SWEEP = {"initial": [[3470.6365421583196, 3418.3339510248147,
+    1457347.647546141], [3474.597419825185, 3418.3339510248147,
+    1462778.6890561387], [3478.7126715510462, 3418.3339510248147,
+    1471214.177333928], [3482.982836578452, 3418.3339510248147,
+    1484394.6485969678], [3487.4084310308826, 3418.3339510248147,
+    1505162.725875443], [3491.989947606089, 3418.3339510248147,
+    1538256.4867449314], [3496.727854222533, 3418.3339510248147,
+    1591734.0881322925], [3501.622594770474, 3418.3339510248147,
+    1679492.8472147426]], "first_newton": [2, 2, 2, 2, 3, 4, 5, 2],
+    "attempts": [{"n_accepted": [1, 1, 1, 1, 1, 0, 0, 0], "n_rejected": [0,
+    0, 0, 0, 0, 1, 1, 1], "t": [5e-12, 5e-12, 5e-12, 5e-12, 5e-12, 0.0, 0.0,
+    0.0], "dt": [5e-12, 5e-12, 5e-12, 5e-12, 5e-12, 2.358596890435744e-12,
+    8.79836158028602e-13, 2.5e-12], "max_error": [[1.1284209247108497e-05,
+    1.0, 1.0], [1.8698382577412942e-05, 1.0, 1.0], [4.121409710145997e-05,
+    1.0, 1.0], [0.00011924570693360566, 1.0, 1.0], [0.0003619028166314206,
+    1.0, 1.0], [1.0, 1.0, 1.0], [1.0, 1.0, 1.0], [1.0, 1.0, 1.0]],
+    "u_norms": [[3470.62071836914, 3418.3211229818135, 1457347.6470622402],
+    [3474.581680576234, 3418.324690662721, 1462778.6883072914],
+    [3478.6970447070794, 3418.334725896549, 1471214.1761804947],
+    [3482.96740837496, 3418.3699479073084, 1484394.646900831],
+    [3487.3935388679633, 3418.4953069502662, 1505162.724336324],
+    [3491.989947606089, 3418.3339510248147, 1538256.4867449314],
+    [3496.727854222533, 3418.3339510248147, 1591734.0881322925],
+    [3501.622594770474, 3418.3339510248147, 1679492.8472147426]]},
+    {"n_accepted": [2, 2, 2, 2, 2, 1, 1, 0], "n_rejected": [0, 0, 0, 0, 0,
+    1, 1, 2], "t": [1e-11, 1e-11, 1e-11, 1e-11, 1e-11,
+    2.358596890435744e-12, 8.79836158028602e-13, 0.0], "dt": [5e-12, 5e-12,
+    5e-12, 5e-12, 5e-12, 5e-12, 1.894247447649398e-12,
+    3.7561741769392476e-13], "max_error": [[1.1279008641139687e-05,
+    1.1284209247108497e-05, 1.0], [1.8684676358422515e-05,
+    1.8698382577412942e-05, 1.0], [4.118402060376995e-05,
+    4.121409710145997e-05, 1.0], [0.00011915863800082705,
+    0.00011924570693360566, 1.0], [0.00036154607757241217,
+    0.0003619028166314206, 1.0], [0.0005005011274032052, 1.0, 1.0],
+    [0.0005010323302952168, 1.0, 1.0], [1.0, 1.0, 1.0]],
+    "u_norms": [[3470.6048945917896, 3418.308291868667, 1457347.646577729],
+    [3474.565941337195, 3418.3154228295452, 1462778.6875570829],
+    [3478.6814178717427, 3418.335484578445, 1471214.1750195648],
+    [3482.951980197284, 3418.405923009409, 1484394.6451268154],
+    [3487.378646970417, 3418.656819664002, 1505162.721968605],
+    [3491.9838532686344, 3418.596297707631, 1538256.487437117],
+    [3496.727028424328, 3418.6229871642245, 1591734.0899492034],
+    [3501.622594770474, 3418.3339510248147, 1679492.8472147426]]},
+    {"n_accepted": [3, 3, 3, 3, 3, 1, 1, 1], "n_rejected": [0, 0, 0, 0, 0,
+    2, 2, 2], "t": [1.5e-11, 1.5e-11, 1.5e-11, 1.5e-11, 1.5e-11,
+    2.358596890435744e-12, 8.79836158028602e-13, 3.7561741769392476e-13],
+    "dt": [5e-12, 5e-12, 5e-12, 5e-12, 5e-12, 2.3590461242830997e-12,
+    8.785886218166888e-13, 8.088308259693601e-13],
+    "max_error": [[1.5031747653368336e-05, 1.1279008641139687e-05,
+    1.1284209247108497e-05], [2.489464221946303e-05, 1.8684676358422515e-05,
+    1.8698382577412942e-05], [5.487212158158693e-05, 4.118402060376995e-05,
+    4.121409710145997e-05], [0.00015877853840812282, 0.00011915863800082705,
+    0.00011924570693360566], [0.0004815871755214011, 0.00036154607757241217,
+    0.0003619028166314206], [0.0005005011274032052, 1.0, 1.0],
+    [0.0005010323302952168, 1.0, 1.0], [0.0005006904853867971, 1.0, 1.0]],
+    "u_norms": [[3470.5837962392766, 3418.2911797127513,
+    1457347.6459311622], [3474.544955699958, 3418.303056023337,
+    1462778.6865547555], [3478.660582104584, 3418.3364759040924,
+    1471214.173457329], [3482.9314093307744, 3418.4538757248215,
+    1484394.642601033], [3487.358791480457, 3418.8724749865837,
+    1505162.716950368], [3491.9838532686344, 3418.596297707631,
+    1538256.487437117], [3496.727028424328, 3418.6229871642245,
+    1591734.0899492034], [3501.624979565057, 3418.6487052615566,
+    1679492.849753184]]}], "run_until": {"n_accepted": [3, 3, 3, 3, 3, 3, 8,
+    21], "n_rejected": [0, 0, 0, 0, 0, 2, 2, 4], "t": [1.5e-11, 1.5e-11,
+    1.5e-11, 1.5e-11, 1.5e-11, 7e-12, 7e-12, 7e-12], "dt": [5e-12, 5e-12,
+    5e-12, 5e-12, 5e-12, 2.413567288095259e-12, 5.07330543175377e-13,
+    2.8547087462796067e-13], "max_error": [[1.5031747653368336e-05,
+    1.1279008641139687e-05, 1.1284209247108497e-05], [2.489464221946303e-05,
+    1.8684676358422515e-05, 1.8698382577412942e-05], [5.487212158158693e-05,
+    4.118402060376995e-05, 4.121409710145997e-05], [0.00015877853840812282,
+    0.00011915863800082705, 0.00011924570693360566], [0.0004815871755214011,
+    0.00036154607757241217, 0.0003619028166314206], [0.0006431096790453708,
+    0.0005002648607837783, 0.0005005011274032052], [0.000324811984251861,
+    0.0009955898771118283, 0.0009397047843201225], [0.0006272854262754146,
+    0.0009257856123015754, 0.0009156742009042328]],
+    "u_norms": [[3470.5837962392766, 3418.2911797127513,
+    1457347.6459311622], [3474.544955699958, 3418.303056023337,
+    1462778.6865547555], [3478.660582104584, 3418.3364759040924,
+    1471214.173457329], [3482.9314093307744, 3418.4538757248215,
+    1484394.642601033], [3487.358791480457, 3418.8724749865837,
+    1505162.716950368], [3491.969919134035, 3419.198477846489,
+    1538256.4811848034], [3496.718617861456, 3421.627594549213,
+    1591733.9443256017], [3501.7022053451647, 3429.073496729581,
+    1679488.65579235]], "attempts": 22}}
 # Tolerances of phase 9, relative, the largest gap over the members. The
 # step error is a ratio of small differences: the JAX package's own sweep
 # from its initial states scaled by (1 + 1e-15 * seeded noise), two seeds
 # (tools/port_reference_sweep.py --spread 2), lands after the 3 attempts
 # within t 1.5e-14, dt 2.7e-14, max_error 4.4e-13, column norms 8.3e-16
-# of its unperturbed run, and after run_until's 56 attempts within dt
-# 2.5e-9, max_error 1.2e-8, column norms 8.1e-12. The port on the H100
-# (NVIDIA H100 80GB HBM3, 700 W; PERF.md): 9.4e-16, 1.5e-15, 1.5e-14,
-# 2.0e-14 after the attempts; 1.1e-9, 2.0e-9, 3.0e-12 after run_until. Each limit sits
-# above the JAX package's own spread; the counts and run_until's t (the
-# horizon) are exact. The control (the same batch through one
+# of its unperturbed run, and after run_until's 22 attempts (the 7e-12
+# horizon) within dt 3.8e-13, max_error 7.0e-13, column norms 1.8e-15.
+# The port on the H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md): 9.4e-16,
+# 1.5e-15, 1.5e-14, 2.0e-14 after the attempts; 1.1e-9, 2.0e-9, 3.0e-12
+# after run_until's 56 attempts to the earlier 2e-11 horizon. Each limit
+# sits above the JAX package's own spread; the counts and run_until's t
+# (the horizon) are exact. The control (the same batch through one
 # Newton-BiCGStab with scalars shared across the members) changes the
 # members' accept/reject verdicts within the 3 attempts and fails every
 # limit of the attempts. The initial states' column norms 1e-11 (the
@@ -697,6 +715,123 @@ SWEEP_UNTIL_RTOL = {"t": 1e-12, "dt": 1e-7, "max_error": 1e-7,
                     "u_norms": 1e-10}
 SWEEP_INITIAL_RTOL = 1e-11
 SWEEP_SINGLE_RTOL = 1e-11
+# Phase 9b: the sweep's option paths (tools/port_reference_options.py's
+# configurations) at B = SWEEP_B, SWEEP_OPTION_ATTEMPTS lockstep attempts
+# each. The JAX numbers, with the JAX package on the CPU:
+#   JAX_PLATFORMS=cpu python tools/port_reference_sweep.py --config NAME
+#       --attempts 2 --horizon 0 --spread 4 --spread-eps EPS
+# (EPS 1e-15 for tzline, 4 seeds; 1e-7 for row_scaled_f32, 40 seeds), from
+# phase 9's initial states: per member the first attempt's converged flags
+# and Newton iterations, after each attempt the counts, t, dt, max_error
+# and the column norms; "spread": the first attempt's Newton iterations
+# and the final counts of the JAX sweep from those states scaled by
+# (1 + EPS * seeded noise), each member's [least, most]
+SWEEP_OPTION_ATTEMPTS = 2
+SWEEP_OPTIONS = {"tzline": {"poisson_precond": "mg-zline",
+                            "transport_zline": True},
+                 "row_scaled_f32": {"row_scaled": True,
+                                    "dtype": torch.float32}}
+REF_SWEEP_OPTIONS = {"tzline": {"first": {"converged": [True, True, True,
+    True, True, True, True, False], "newton_iterations": [2, 2, 2, 2, 3, 4,
+    5, 2]}, "attempts": [{"n_accepted": [1, 1, 1, 1, 1, 0, 0, 0],
+    "n_rejected": [0, 0, 0, 0, 0, 1, 1, 1], "t": [5e-12, 5e-12, 5e-12,
+    5e-12, 5e-12, 0.0, 0.0, 0.0], "dt": [5e-12, 5e-12, 5e-12, 5e-12, 5e-12,
+    2.358596890676842e-12, 8.798361580990274e-13, 2.5e-12],
+    "max_error": [[1.1284209248395026e-05, 1.0, 1.0],
+    [1.8698382557326115e-05, 1.0, 1.0], [4.121409718993717e-05, 1.0, 1.0],
+    [0.00011924570717719511, 1.0, 1.0], [0.0003619028167243289, 1.0, 1.0],
+    [1.0, 1.0, 1.0], [1.0, 1.0, 1.0], [1.0, 1.0, 1.0]],
+    "u_norms": [[3470.6207183691376, 3418.3211229818066,
+    1457347.6470622544], [3474.5816805762297, 3418.324690662701,
+    1462778.6883073295], [3478.6970447071094, 3418.334725896625,
+    1471214.1761806437], [3482.9674083741716, 3418.3699479074517,
+    1484394.646901356], [3487.393538867963, 3418.495306950315,
+    1505162.7243363669], [3491.989947606089, 3418.3339510248147,
+    1538256.4867449312], [3496.727854222533, 3418.3339510248147,
+    1591734.0881322925], [3501.622594770474, 3418.3339510248147,
+    1679492.8472147426]]}, {"n_accepted": [2, 2, 2, 2, 2, 1, 1, 0],
+    "n_rejected": [0, 0, 0, 0, 0, 1, 1, 2], "t": [1e-11, 1e-11, 1e-11,
+    1e-11, 1e-11, 2.358596890676842e-12, 8.798361580990274e-13, 0.0],
+    "dt": [5e-12, 5e-12, 5e-12, 5e-12, 5e-12, 5e-12, 1.8942474476869418e-12,
+    3.7561741771109053e-13], "max_error": [[1.1279008643084392e-05,
+    1.1284209248395026e-05, 1.0], [1.8684676329504922e-05,
+    1.8698382557326115e-05, 1.0], [4.1184020726269155e-05,
+    4.121409718993717e-05, 1.0], [0.00011915863824487808,
+    0.00011924570717719511, 1.0], [0.00036154607771337086,
+    0.0003619028167243289, 1.0], [0.0005005011277049052, 1.0, 1.0],
+    [0.0005010323304112709, 1.0, 1.0], [1.0, 1.0, 1.0]],
+    "u_norms": [[3470.604894591788, 3418.3082918686505, 1457347.6465777468],
+    [3474.5659413371927, 3418.3154228294943, 1462778.6875571162],
+    [3478.681417871836, 3418.3354845786203, 1471214.1750197064],
+    [3482.9519801976367, 3418.405923009752, 1484394.6451275663],
+    [3487.3786469704164, 3418.6568196641406, 1505162.721968806],
+    [3491.98385326863, 3418.5962977078707, 1538256.4874369833],
+    [3496.727028424325, 3418.622987164271, 1591734.0899490123],
+    [3501.622594770474, 3418.3339510248147, 1679492.8472147426]]}],
+    "spread": {"eps": 1e-15, "seeds": 4, "first_newton": [[2, 2], [2, 2],
+    [2, 2], [2, 2], [3, 3], [4, 4], [5, 5], [2, 2]], "n_accepted": [[2, 2],
+    [2, 2], [2, 2], [2, 2], [2, 2], [1, 1], [1, 1], [0, 0]],
+    "n_rejected": [[0, 0], [0, 0], [0, 0], [0, 0], [0, 0], [1, 1], [1, 1],
+    [2, 2]], "first_converged_alike": True}},
+    "row_scaled_f32": {"first": {"converged": [False, False, False, False,
+    True, True, True, False], "newton_iterations": [5, 9, 5, 11, 13, 11, 6,
+    2]}, "attempts": [{"n_accepted": [0, 0, 0, 0, 1, 0, 0, 0],
+    "n_rejected": [1, 1, 1, 1, 0, 1, 1, 1], "t": [0.0, 0.0, 0.0, 0.0, 5e-12,
+    0.0, 0.0, 0.0], "dt": [2.5e-12, 2.5e-12, 2.5e-12, 2.5e-12, 5e-12,
+    2.358592489417879e-12, 8.798458002009566e-13, 2.5e-12],
+    "max_error": [[1.0, 1.0, 1.0], [1.0, 1.0, 1.0], [1.0, 1.0, 1.0], [1.0,
+    1.0, 1.0], [0.00036190379079555996, 1.0, 1.0], [1.0, 1.0, 1.0], [1.0,
+    1.0, 1.0], [1.0, 1.0, 1.0]], "u_norms": [[3470.6365421583196,
+    3418.3339510248147, 1457347.647546141], [3474.597419825185,
+    3418.3339510248147, 1462778.6890561387], [3478.7126715510462,
+    3418.3339510248147, 1471214.177333928], [3482.982836578452,
+    3418.3339510248147, 1484394.6485969678], [3487.3935388332243,
+    3418.4953074332693, 1505162.747113822], [3491.989947606089,
+    3418.3339510248147, 1538256.4867449314], [3496.727854222533,
+    3418.3339510248147, 1591734.0881322925], [3501.622594770474,
+    3418.3339510248147, 1679492.8472147426]]}, {"n_accepted": [0, 0, 0, 0,
+    2, 1, 1, 0], "n_rejected": [2, 2, 2, 2, 0, 1, 1, 2], "t": [0.0, 0.0,
+    0.0, 0.0, 1e-11, 2.358592489417879e-12, 8.798458002009566e-13, 0.0],
+    "dt": [1.25e-12, 1.25e-12, 1.25e-12, 1.25e-12, 5e-12, 5e-12,
+    1.894261545670949e-12, 3.756160133070353e-13], "max_error": [[1.0, 1.0,
+    1.0], [1.0, 1.0, 1.0], [1.0, 1.0, 1.0], [1.0, 1.0, 1.0],
+    [0.000361546497736084, 0.00036190379079555996, 1.0],
+    [0.0005005008625415137, 1.0, 1.0], [0.0005010391067594777, 1.0, 1.0],
+    [1.0, 1.0, 1.0]], "u_norms": [[3470.6365421583196, 3418.3339510248147,
+    1457347.647546141], [3474.597419825185, 3418.3339510248147,
+    1462778.6890561387], [3478.7126715510462, 3418.3339510248147,
+    1471214.177333928], [3482.982836578452, 3418.3339510248147,
+    1484394.6485969678], [3487.3786469220136, 3418.656820397941,
+    1505162.7358064344], [3491.983853269473, 3418.596297777769,
+    1538256.5034191164], [3496.7270284158817, 3418.622991175428,
+    1591734.170325964], [3501.622594770474, 3418.3339510248147,
+    1679492.8472147426]]}], "spread": {"eps": 1e-07, "seeds": 40,
+    "first_newton": [[5, 9], [4, 10], [4, 10], [8, 13], [9, 17], [11, 18],
+    [5, 7], [2, 2]], "n_accepted": [[0, 0], [0, 0], [0, 0], [0, 0], [2, 2],
+    [1, 1], [1, 1], [0, 0]], "n_rejected": [[2, 2], [2, 2], [2, 2], [2, 2],
+    [0, 0], [1, 1], [1, 1], [2, 2]], "first_converged_alike": True}}}
+# The attempts' tolerances, relative, the largest gap over the members,
+# each a few times the JAX package's own spread (and above the port's gap
+# on the H100, PERF.md sec. 6): tzline t 1.1e-12, dt 1.2e-10 (the
+# controller's dt after a rejection amplifies rounding), max_error
+# 4.9e-11, column norms 2.1e-14; row_scaled_f32 t 2.8e-5, dt 1.0e-4,
+# max_error 7.8e-4, column norms 7.7e-8. The tzline control (no z-line
+# solves) lay 1.0e-9 off in max_error and 2.6e-13 in the column norms on
+# the H100; the float32 control (no weights) changes the verdicts.
+SWEEP_OPTION_RTOL = {
+    "tzline": {"t": 5e-12, "dt": 5e-10, "max_error": 2e-10,
+               "u_norms": 1e-13},
+    "row_scaled_f32": {"t": 1e-4, "dt": 5e-4, "max_error": 2e-3,
+                       "u_norms": 2.5e-7}}
+# a member's first attempt against its single step: its state, relative
+# to each column's max (float64 equal up to 4.4e-12 on the H100; float32
+# 4.8e-8, the batch rounding otherwise, see the Krylov tolerance below)
+SWEEP_OPTION_SINGLE_RTOL = {"tzline": 1e-11, "row_scaled_f32": 1e-7}
+# a member's Krylov iterations in its first attempt against its single
+# step's, relative: equal in float64; in float32 the batch's cell GEMMs
+# round by their batch count (PERF.md, sec. 7), which can move where a
+# Newton step's BiCGStab stops by an iteration
+SWEEP_OPTION_KRYLOV_RTOL = {"tzline": 0.0, "row_scaled_f32": 0.1}
 # bench_assets/dd_scale_r03.log, the JAX tool's run on 8 virtual CPU
 # devices: (dofs, unknowns, own rows, ghost rows) per part, the Newton
 # iterations of every step and the first two steps' errors (the tool's
@@ -1065,17 +1200,7 @@ def fresh_window(k1, card) -> dict:
         k1.LAUNCHES.clear()
         step_s, per_advance = [], []
         with mock.patch.multiple(newton, **patches):
-            for k in range(N_WINDOW_ADVANCES):
-                if k == N_LEAST_ADVANCES:
-                    _depth.update(full=time.perf_counter() - T0
-                                  < FULL_DEPTH_PACE_S, pace_s=round(
-                                      time.perf_counter() - T0, 1))
-                    if not _depth["full"]:
-                        log(f"a slower host: {_depth['pace_s']} s at the "
-                            f"window's advance {k}, past "
-                            f"{FULL_DEPTH_PACE_S} s; the window and the "
-                            f"glow take {N_LEAST_ADVANCES} advances")
-                        break
+            for _ in range(N_WINDOW_ADVANCES):
                 before = dict(counts)
                 t = time.perf_counter()
                 state = driver.advance(state, {})
@@ -1598,9 +1723,8 @@ def glow(k1, card) -> dict:
                    for name in ("newton_iteration", "bicgstab", "gmres")}
         k1.LAUNCHES.clear()
         step_s, per_advance = [], []
-        n_glow = N_GLOW_ADVANCES if _depth["full"] else N_LEAST_ADVANCES
         with mock.patch.multiple(newton, **patches):
-            for _ in range(n_glow):
+            for _ in range(N_GLOW_ADVANCES):
                 before = dict(counts)
                 t = time.perf_counter()
                 state.dt = min(state.dt, max(args.T - state.t,
@@ -1633,12 +1757,12 @@ def glow(k1, card) -> dict:
                 "accepted": state.n_accepted, "attempts": attempts,
                 "launches": launches, "launches_by_shape": shapes,
                 "k1_launches_per_advance_by_shape":
-                    {k: v / n_glow for k, v in shapes.items()},
+                    {k: v / N_GLOW_ADVANCES for k, v in shapes.items()},
                 "t": state.t, "card": card})
     check(all(bool(torch.isfinite(x).all())
               for x in (state.u, state.u_old, state.u_old1)),
           "non-finite glow state")
-    check(state.n_accepted == n_glow and state.t > 0,
+    check(state.n_accepted == N_GLOW_ADVANCES and state.t > 0,
           "the glow advances did not all land")
     check(dense > 0 and shapes.get("dense C=5 f32", 0) > 0,
           "the glow never launched K1's dense form on its cell scatter")
@@ -1684,11 +1808,17 @@ def tof_k1_cases(k1, flush) -> list:
     return cases
 
 
-def tof(k1, card) -> dict:
-    """Phase 7: the time-of-flight verification runs on the card, held to
-    the JAX package's numbers (tools/port_reference_tof.py)."""
-    import tempfile
+def start_tof_quick() -> dict:
+    """Phase 7's process: `python -m fedm_tpu_torch.examples.tof_1d
+    --quick`, beside the phase's own runs."""
+    return start_process(["fedm_tpu_torch.examples.tof_1d", "--quick", "-o",
+                          "{tmp}/out"], "tof_1d_quick")
 
+
+def tof(k1, card, quick: dict) -> dict:
+    """Phase 7: the time-of-flight verification runs on the card, held to
+    the JAX package's numbers (tools/port_reference_tof.py); `quick` the
+    entry point's process (`start_tof_quick`)."""
     from fedm_tpu_torch.model.system import StepParams
     from fedm_tpu_torch.models.tof import (TimeOfFlight1D, TimeOfFlight2D,
                                            TofConfig)
@@ -1795,41 +1925,37 @@ def tof(k1, card) -> dict:
           "tof 2d never launched K1's dense forms")
     del m2, u
 
-    # the entry point, as a user runs it, on the card
-    with tempfile.TemporaryDirectory() as tmp:
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "fedm_tpu_torch.examples.tof_1d",
-             "--quick", "-o", tmp], capture_output=True, text=True,
-            cwd=ROOT, timeout=max(60, BUDGET_S - (time.perf_counter() - T0)))
-        out["quick_s"] = time.perf_counter() - t
-        check(proc.returncode == 0, f"tof_1d --quick failed: {proc.stderr}")
-        tree = sorted(str(p.relative_to(tmp)) for p in Path(tmp).rglob("*")
-                      if p.is_file())
-        check(tree == [
-            "mesh/mesh info.txt", "mesh/mesh.vtu", "model.log",
-            "number density/analytical solution/analytical solution.pvd",
-            "number density/analytical solution/"
-            "analytical solution000000.vtu",
-            "number density/electrons/electrons.pvd",
-            "number density/electrons/electrons000000.vtu",
-            "relative error.log"], f"tof_1d --quick wrote {tree}")
-        lines = (Path(tmp) / "relative error.log").read_text().splitlines()
-        rows = [re.fullmatch(r"h_max = (\S+)\t dt = (\S+)\t "
-                             r"relative_error = (\S+)", line)
-                for line in lines]
-        check(len(rows) == 3 and all(
-            r is not None and abs(float(r[1]) / 2.5e-6 - 1) < 1e-12
-            and r[2] == "1e-11" for r in rows),
-            f"relative error.log: {lines}")
-        got = [float(r[3]) for r in rows]
+    # the entry point, as a user runs it, on the card (its process started
+    # with the phase, `start_tof_quick`)
+    stdout = finish_process(quick, BUDGET_S)
+    out["quick_s"] = quick["wall_s"]
+    tmp = quick["tmp"] / "out"
+    tree = sorted(str(p.relative_to(tmp)) for p in Path(tmp).rglob("*")
+                  if p.is_file())
+    check(tree == [
+        "mesh/mesh info.txt", "mesh/mesh.vtu", "model.log",
+        "number density/analytical solution/analytical solution.pvd",
+        "number density/analytical solution/"
+        "analytical solution000000.vtu",
+        "number density/electrons/electrons.pvd",
+        "number density/electrons/electrons000000.vtu",
+        "relative error.log"], f"tof_1d --quick wrote {tree}")
+    lines = (Path(tmp) / "relative error.log").read_text().splitlines()
+    rows = [re.fullmatch(r"h_max = (\S+)\t dt = (\S+)\t "
+                         r"relative_error = (\S+)", line)
+            for line in lines]
+    check(len(rows) == 3 and all(
+        r is not None and abs(float(r[1]) / 2.5e-6 - 1) < 1e-12
+        and r[2] == "1e-11" for r in rows),
+        f"relative error.log: {lines}")
+    got = [float(r[3]) for r in rows]
     out["quick_errors"] = got
     out["quick_error_rel"] = held_to(
         "tof_1d --quick relative error.log", got,
         [e for _, e in REF_TOF["quick"]["errors"]], [TOF_ERROR_RTOL] * 3)
     log(f"tof_1d --quick on the card in {out['quick_s']:.2f} s (a process "
-        f"of its own, the kernel build loaded from the cache): "
-        f"{proc.stdout.strip().splitlines()[-1]}")
+        f"beside the phase, the kernel build loaded from the cache): "
+        f"{stdout.strip().splitlines()[-1]}")
     return out
 
 
@@ -1902,10 +2028,18 @@ def _close(name, got, ref, rtol, atol=0.0, atol_rel=0.0) -> float:
     return ratio
 
 
-def extended(k1, card) -> dict:
+def start_extended_entry() -> dict:
+    """Phase 8's process: `python -m fedm_tpu_torch.examples.
+    extended_scheme --devices 8 --steps 1`, beside the phase's own work."""
+    return start_process(["fedm_tpu_torch.examples.extended_scheme",
+                          "--devices", EXT_PARTS, "--steps", 1],
+                         "extended_scheme")
+
+
+def extended(k1, card, entry: dict) -> dict:
     """Phase 8: the extended reaction scheme under the DOF-partitioned
     domain decomposition, held to tools/port_reference_extended.py's JAX
-    numbers."""
+    numbers; `entry` the entry point's process (`start_extended_entry`)."""
     import tempfile
 
     import numpy as np
@@ -2152,17 +2286,11 @@ def extended(k1, card) -> dict:
     del ops, J, M, rhs
     del m, md, d, s, sd, steps, u1, u2, aux, auxd
 
-    # (5) the entry point as a process: one advance and one more
+    # (5) the entry point as a process (started with the phase,
+    # `start_extended_entry`): one advance and one more
     re_ = ref["example"]
-    t = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "fedm_tpu_torch.examples.extended_scheme",
-         "--devices", str(EXT_PARTS), "--steps", "1"], capture_output=True,
-        text=True, cwd=ROOT,
-        timeout=max(60, BUDGET_S - (time.perf_counter() - T0)))
-    out["entry_point_s"] = time.perf_counter() - t
-    check(proc.returncode == 0, f"extended_scheme failed: {proc.stderr}")
-    lines = proc.stdout.strip().splitlines()
+    lines = finish_process(entry, BUDGET_S).strip().splitlines()
+    out["entry_point_s"] = entry["wall_s"]
     log(f"extended_scheme --devices {EXT_PARTS} --steps 1 in "
         f"{out['entry_point_s']:.1f} s: {lines}")
     mt = re.fullmatch(
@@ -2368,9 +2496,10 @@ def _shared_scalars(residual, jac, delta, config, pb, residual_hi=None,
     return d, NewtonInfo(*(np.full(delta.shape[0], x) for x in info))
 
 
-def sweep(k1, card) -> dict:
+def sweep(k1, card) -> tuple:
     """Phase 9: the batched sweep of B = 8 members of the JAX package's
-    default StreamerConfig, held to tools/port_reference_sweep.py."""
+    default StreamerConfig, held to tools/port_reference_sweep.py.
+    Returns (the phase's results, the members' initial states)."""
     import dataclasses
 
     import numpy as np
@@ -2446,8 +2575,7 @@ def sweep(k1, card) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             _, _, its = bicgstab_batched(
-                op, rhs, tol=1e-30, maxiter=SWEEP_PROFILED_ITERS
-                if _depth["full"] else SWEEP_PROFILED_ITERS_LEAST)
+                op, rhs, tol=1e-30, maxiter=SWEEP_PROFILED_ITERS)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         dev = [e for e in prof.events()
@@ -2587,7 +2715,7 @@ def sweep(k1, card) -> dict:
     check(all(not control[k] <= tol for k, tol in SWEEP_ATTEMPT_RTOL.items()),
           "the shared-scalar control holds the sweep's tolerances: they "
           "cannot tell per-member Krylov scalars apart")
-    return out
+    return out, states
 
 
 def _run_group(cmd, timeout: float) -> subprocess.CompletedProcess:
@@ -2606,21 +2734,35 @@ def _run_group(cmd, timeout: float) -> subprocess.CompletedProcess:
     return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
 
 
-def dd_scale(card, n_cards: int = 1, timeout: float = None) -> dict:
+def start_dd_scale() -> dict:
+    """Phase 10's process (`dd_scale(card, job=...)` waits for it)."""
+    return start_process(["fedm_tpu_torch.dd_scale", "--steps",
+                          len(DD_SCALE_REF["errors"]), "--cards", 1],
+                         "dd_scale")
+
+
+def dd_scale(card, n_cards: int = 1, timeout: float = None,
+             job: dict = None) -> dict:
     """Phase 10: `python -m fedm_tpu_torch.dd_scale` as a process, at its
     defaults (280 x 560, 472,923 unknowns, 8 parts stacked on the card, 2
     steps, then the same steps undistributed), held to
-    bench_assets/dd_scale_r03.log; with `n_cards` > 1 (phase 11) the 8
-    parts on that many cards, one rank each (`--cards`)."""
-    t = time.perf_counter()
-    proc = _run_group(
-        [sys.executable, "-m", "fedm_tpu_torch.dd_scale", "--steps",
-         str(len(DD_SCALE_REF["errors"])), "--cards", str(n_cards)],
-        max(60, BUDGET_S - (time.perf_counter() - T0)) if timeout is None
-        else timeout)
-    wall = time.perf_counter() - t
-    check(proc.returncode == 0, f"dd_scale failed: {proc.stderr[-2000:]}")
-    text = proc.stdout
+    bench_assets/dd_scale_r03.log: `job` (`start_dd_scale`) waited for,
+    or run here; with `n_cards` > 1 (phase 11) the 8 parts on that many
+    cards, one rank each (`--cards`)."""
+    if job is not None:
+        text = finish_process(job, BUDGET_S)
+        stderr, wall = (job["tmp"] / "stderr").read_text(), job["wall_s"]
+    else:
+        t = time.perf_counter()
+        proc = _run_group(
+            [sys.executable, "-m", "fedm_tpu_torch.dd_scale", "--steps",
+             str(len(DD_SCALE_REF["errors"])), "--cards", str(n_cards)],
+            max(60, BUDGET_S - (time.perf_counter() - T0))
+            if timeout is None else timeout)
+        wall = time.perf_counter() - t
+        check(proc.returncode == 0,
+              f"dd_scale failed: {proc.stderr[-2000:]}")
+        text, stderr = proc.stdout, proc.stderr
     log("dd_scale: " + " | ".join(text.strip().splitlines()))
     m = re.search(r"mesh 280x560: (\d+) dofs, (\d+) unknowns", text)
     part = re.search(r"partition: (\d+) own \+ (\d+) ghost rows/device",
@@ -2633,7 +2775,7 @@ def dd_scale(card, n_cards: int = 1, timeout: float = None) -> dict:
     k1n = re.search(r"K1 launches: (\d+)", text)
     per_rank = collections.defaultdict(list)
     for rank, _, sec in re.findall(r"rank (\d+) step (\d+): ([0-9.]+) s",
-                                   proc.stderr):
+                                   stderr):
         per_rank[int(rank)].append(float(sec))
     out = {"card": card, "cards": n_cards, "process_s": wall,
            "dofs": int(m[1]) if m else None,
@@ -2665,31 +2807,74 @@ def dd_scale(card, n_cards: int = 1, timeout: float = None) -> dict:
     return out
 
 
-def streamer_example(card) -> dict:
-    """Phase 9b: `python -m fedm_tpu_torch.examples.streamer --quick -T
-    2e-11` as a process, its output tree and `relative error.log` held to
-    the JAX example's (tools/port_reference_streamer_example.py)."""
+def start_process(argv: list, name: str) -> dict:
+    """`python -m argv...` started on the card in a session of its own,
+    its output in files; each "{tmp}" in `argv` is the job's temporary
+    directory (`finish_process` waits for it, `stop_processes` ends it)."""
     import tempfile
 
-    import numpy as np
+    import threading
 
+    tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{name}_"))
+    argv = [str(a).replace("{tmp}", str(tmp)) for a in argv]
+    with open(tmp / "stdout", "w") as so, open(tmp / "stderr", "w") as se:
+        proc = subprocess.Popen([sys.executable, "-m"] + argv, stdout=so,
+                                stderr=se, cwd=ROOT, start_new_session=True)
+    job = {"name": name, "proc": proc, "tmp": tmp,
+           "t0": time.perf_counter()}
+
+    def wait():  # the process's own wall time, start to exit
+        proc.wait()
+        job["wall_s"] = time.perf_counter() - job["t0"]
+
+    job["waiter"] = threading.Thread(target=wait, daemon=True)
+    job["waiter"].start()
+    return job
+
+
+def finish_process(job: dict, timeout: float) -> str:
+    """The job's stdout once it exits 0 (at most `timeout` s from its
+    start; its stderr in the failure)."""
+    job["waiter"].join(max(1.0, timeout - (time.perf_counter()
+                                           - job["t0"])))
+    rc = job["proc"].poll()
+    check(rc == 0, f"{job['name']} failed, rc {rc}: "
+                   f"{(job['tmp'] / 'stderr').read_text()[-2000:]}")
+    return (job["tmp"] / "stdout").read_text()
+
+
+def stop_processes(jobs: list) -> None:
+    """Kill the jobs' sessions that still run; remove their files."""
+    import shutil
+
+    for job in jobs:
+        if job["proc"] is not None and job["proc"].poll() is None:
+            os.killpg(job["proc"].pid, signal.SIGKILL)
+            job["proc"].wait()
+        shutil.rmtree(job["tmp"], ignore_errors=True)
+
+
+def start_streamer_example() -> dict:
+    """Phase 9a's process: `python -m fedm_tpu_torch.examples.streamer
+    --quick -T 2e-11`."""
+    return start_process(["fedm_tpu_torch.examples.streamer", "--quick",
+                          "-T", "2e-11", "-o", "{tmp}/out"],
+                         "streamer_example")
+
+
+def streamer_example(job: dict, card) -> dict:
+    """Phase 9a: the streamer example's process (`start_streamer_example`)
+    waited for, its output tree and `relative error.log` held to the JAX
+    example's (tools/port_reference_streamer_example.py)."""
     ref = REF_STREAMER_EXAMPLE
-    with tempfile.TemporaryDirectory() as tmp:
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "fedm_tpu_torch.examples.streamer",
-             "--quick", "-T", "2e-11", "-o", tmp], capture_output=True,
-            text=True, cwd=ROOT,
-            timeout=max(60, BUDGET_S - (time.perf_counter() - T0)))
-        wall = time.perf_counter() - t
-        check(proc.returncode == 0,
-              f"the streamer example failed: {proc.stderr[-2000:]}")
-        tree = sorted(str(p.relative_to(tmp)) for p in Path(tmp).rglob("*"))
-        rows = np.loadtxt(Path(tmp) / "relative error.log", ndmin=2)
-    last = proc.stdout.strip().splitlines()[-1]
-    out = {"card": card, "process_s": wall, "last_line": last,
+    stdout = finish_process(job, SERIES_PROCESS_S)
+    res = job["tmp"] / "out"
+    tree = sorted(str(p.relative_to(res)) for p in res.rglob("*"))
+    rows = np.loadtxt(res / "relative error.log", ndmin=2)
+    last = stdout.strip().splitlines()[-1]
+    out = {"card": card, "process_s": job["wall_s"], "last_line": last,
            "errors": rows[:, 0].tolist()}
-    log(f"streamer example on the card in {wall:.2f} s: {last}")
+    log(f"streamer example on the card in {job['wall_s']:.2f} s: {last}")
     check(tree == ref["tree"], f"the streamer example wrote {tree}")
     check(last == ref["last_line"], f"the streamer example printed {last}")
     want = np.asarray(ref["errors"])
@@ -2699,6 +2884,431 @@ def streamer_example(card) -> dict:
     out["error_rel"] = held_to("streamer example relative error.log",
                                rows[:, 0].tolist(), want[:, 0].tolist(),
                                [STREAMER_EXAMPLE_RTOL] * len(want))
+    return out
+
+
+def _spread_holds(name: str, got: list, ref: list, spread) -> bool:
+    """Per-member counts equal to the JAX run's, or each member's inside
+    the JAX package's own spread [least, most]."""
+    if got == ref:
+        return True
+    inside = spread is not None and all(
+        lo <= g <= hi for g, (lo, hi) in zip(got, spread))
+    log(f"{name}: {got} against JAX's {ref}: "
+        f"{'inside' if inside else 'outside'} its spread {spread}")
+    return inside
+
+
+def _counting_b(counts: np.ndarray, fn, live):
+    """`fn` (a batched Krylov solve), adding each member's iterations to
+    `counts` while `live()` holds."""
+    def run(*args, **kw):
+        out = fn(*args, **kw)
+        if live():
+            np.add(counts, out[2], out=counts)
+        return out
+
+    return run
+
+
+def sweep_option(name: str, k1, card, states) -> dict:
+    """One option path of phase 9b (the docstring's phase list), its
+    members from `states` (phase 9's initial states)."""
+    from fedm_tpu_torch.model.system import StepParams
+    from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel
+    from fedm_tpu_torch.parallel import BatchedSweep
+    from fedm_tpu_torch.solvers import newton
+
+    ref, tols = REF_SWEEP_OPTIONS[name], SWEEP_OPTION_RTOL[name]
+    spread = ref.get("spread", {})
+    out = {"card": card}
+    cfg = StreamerConfig(**SWEEP_OPTIONS[name])
+    t = time.perf_counter()
+    model = StreamerModel(cfg, device="cuda")
+    sw = BatchedSweep(model.system, monitor_idx=1, ttol=cfg.ttol,
+                      dt_min=cfg.dt_min, dt_max=cfg.dt_max,
+                      batch_sharding="cuda")
+    st0 = sw.from_states(states)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t
+    B, n_dofs, n_eq = st0.u.shape
+    check((B, n_dofs, n_eq) == (SWEEP_B, 13041, 3),
+          f"sweep {name}: the size")
+    log(f"sweep {name}: {B} members, {B * n_dofs * n_eq} unknowns, built "
+        f"in {out['build_s']:.2f} s")
+
+    # the attempts: K1's counts set to 0 just before, read just after; the
+    # first attempt's step kept, with each member's Krylov iterations
+    bs = sw.batched(B)
+    first, krylov = [], np.zeros(B, int)
+    step = bs.step
+
+    def recording(*a, **kw):
+        res = step(*a, **kw)
+        if not first:
+            first.append(res)
+        return res
+
+    def during_first():
+        return not first
+
+    patches = {f: _counting_b(krylov, getattr(newton, f), during_first)
+               for f in ("bicgstab_batched", "gmres_batched")}
+    attempt_s, recs = [], []
+    k1.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    with mock.patch.object(bs, "step", recording), \
+            mock.patch.multiple(newton, **patches):
+        st = st0
+        for _ in range(SWEEP_OPTION_ATTEMPTS):
+            t = time.perf_counter()
+            st = sw.attempt(st, {})
+            torch.cuda.synchronize()
+            attempt_s.append(time.perf_counter() - t)
+            recs.append(_sweep_record(st))
+    launches = k1_launches(k1)
+    shapes = collections.Counter()
+    for (_, table, C, dt), n in k1.LAUNCHES.items():
+        shapes[f"{table} C={C} {dt}"] += n
+    u_b, info_b = first[0]
+    gaps = [_sweep_gaps(r, q) for r, q in zip(recs, ref["attempts"])]
+    out.update(attempt_s=attempt_s, launches=launches,
+               launches_by_shape=dict(sorted(shapes.items())),
+               first_newton=list(map(int, info_b.iters)),
+               first_krylov=krylov.tolist(),
+               first_converged=list(map(bool, info_b.converged)),
+               attempt_gaps=gaps, n_accepted=recs[-1]["n_accepted"],
+               n_rejected=recs[-1]["n_rejected"], t=recs[-1]["t"],
+               dt=recs[-1]["dt"])
+    log(f"sweep {name}: {SWEEP_OPTION_ATTEMPTS} attempts {attempt_s} s; "
+        f"first attempt Newton {out['first_newton']}, Krylov "
+        f"{out['first_krylov']}, converged {out['first_converged']}; K1 "
+        f"{out['launches_by_shape']}")
+    check(out["first_converged"] == ref["first"]["converged"]
+          and _spread_holds(f"sweep {name} first attempt's Newton",
+                            out["first_newton"],
+                            ref["first"]["newton_iterations"],
+                            spread.get("first_newton")),
+          f"sweep {name}: the first attempt's verdicts or Newton "
+          f"iterations differ from JAX's")
+    for i, g in enumerate(gaps):
+        _sweep_held(f"{name} attempt {i + 1}", g, tols)
+    check(bool(torch.isfinite(st.u).all()), f"sweep {name}: non-finite "
+                                            f"state")
+    dtype = "f32" if name.endswith("f32") else "f64"
+    check(shapes.get(f"dense C=3 {dtype}", 0) > 0
+          and shapes.get(f"compact C=3 {dtype}", 0) > 0,
+          f"sweep {name} never launched K1 at its stacked tables: {shapes}")
+
+    # each member's first attempt against the single-system step
+    singles, single_s, u_single = [], [], []
+    for b in range(B):
+        p = StepParams(float(st0.t[b] + st0.dt[b]), float(st0.dt[b]),
+                       float(st0.dt_old[b]))
+        counts = {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with mock.patch.multiple(newton, bicgstab=counting(
+                counts, "krylov", newton.bicgstab), gmres=counting(
+                counts, "krylov", newton.gmres)):
+            u_s, info_s = model.system.step(st0.u[b], st0.u[b],
+                                            st0.u_old1[b], {}, p)
+        torch.cuda.synchronize()
+        single_s.append(time.perf_counter() - t)
+        u_single.append(u_s)
+        scale = u_s.abs().amax(dim=0)
+        singles.append({
+            "newton": [int(info_b.iters[b]), int(info_s.iters)],
+            "krylov": [int(krylov[b]), counts.get("krylov", 0)],
+            "converged": [bool(info_b.converged[b]), bool(info_s.converged)],
+            "state_gap": float(((u_b[b] - u_s).abs().amax(dim=0)
+                                / scale).max())})
+    out.update(first_vs_single=singles, single_step_s=single_s,
+               sequential_first_attempts_s=sum(single_s))
+    log(f"sweep {name} first attempt vs single steps: {singles}; the "
+        f"batch {attempt_s[0]:.2f} s, {B} single steps "
+        f"{sum(single_s):.2f} s")
+    def alike(newton_b, krylov_b, gap, rec):
+        """A batched member's first attempt held to its single step."""
+        return (newton_b == rec["newton"][1]
+                and abs(krylov_b - rec["krylov"][1])
+                <= SWEEP_OPTION_KRYLOV_RTOL[name] * rec["krylov"][1]
+                and gap <= SWEEP_OPTION_SINGLE_RTOL[name])
+
+    for b, rec in enumerate(singles):
+        check(alike(rec["newton"][0], rec["krylov"][0], rec["state_gap"],
+                    rec) and rec["converged"][0] == rec["converged"][1],
+              f"sweep {name}: member {b}'s batched attempt differs from its "
+              f"single step: {rec}")
+
+    # the control: the first attempt without the option (no z-line solves:
+    # the node-block answer on the electron rows; no row weights)
+    if name == "tzline":
+        control = mock.patch.object(bs, "_tzline", None)
+    else:
+        control = mock.patch.object(model.system, "row_weights",
+                                    lambda ops, d: torch.ones_like(d))
+    first.clear()
+    krylov[:] = 0
+    with control, mock.patch.object(bs, "step", recording), \
+            mock.patch.multiple(newton, **patches):
+        rec = _sweep_record(sw.attempt(st0, {}))
+    u_c, info_c = first[0]
+    c_gaps = _sweep_gaps(rec, ref["attempts"][0])
+    c_single = [float(((u_c[b] - u_single[b]).abs().amax(dim=0)
+                       / u_single[b].abs().amax(dim=0)).max())
+                for b in range(B)]
+    out.update(control_gaps=c_gaps, control_single_gaps=c_single,
+               control_newton=list(map(int, info_c.iters)),
+               control_krylov=krylov.tolist())
+    log(f"sweep {name} control: {c_gaps}; against the single steps "
+        f"{c_single}, Newton {out['control_newton']}, Krylov "
+        f"{out['control_krylov']}")
+    check(not (c_gaps["n_accepted"] and c_gaps["n_rejected"] and all(
+        c_gaps[k] <= tol for k, tol in tols.items())),
+          f"sweep {name}: the control holds the JAX tolerances")
+    check(not all(alike(nb, kb, g, rec) for nb, kb, g, rec in zip(
+        out["control_newton"], out["control_krylov"], c_single, singles)),
+          f"sweep {name}: the control holds the single-step tolerances")
+    return out
+
+
+def sweep_options(k1, card, states) -> dict:
+    """Phase 9b: the batched sweep under each option of SWEEP_OPTIONS,
+    from phase 9's initial states."""
+    return {name: sweep_option(name, k1, card, states)
+            for name in SWEEP_OPTIONS}
+
+
+# -- phase 13: the post-processing entry points as processes on the card ----
+
+# tools/port_reference_series.py (the JAX tools on the seeded run
+# directories of tools/series_checkpoints.py): per VTU and field
+# [2-norm, max |value|], the streamer export's lines and `fields.pvd`, the
+# glow report's summary; "control": the same from the states rounded to
+# float32
+REF_SERIES = {"streamer": {"files": {"fields000000.vtu": {"electrons": [3.05033698932353e+21,
+    9.997789742232293e+19], "ions": [3.134165868987967e+21,
+    9.999478592092556e+19], "potential": [1797192.3503216454, 17999.6875],
+    "E_magnitude": [63506609267.89941, 1708100480.0]},
+    "fields000001.vtu": {"electrons": [3.0235593017671386e+21,
+    9.997029759795174e+19], "ions": [3.0665257112600005e+21,
+    9.991255124726094e+19], "potential": [1809549.147473579,
+    17999.76171875], "E_magnitude": [63614080143.84686, 1600252160.0]},
+    "fields000002.vtu": {"electrons": [3.039401774750726e+21,
+    9.995797427162762e+19], "ions": [3.1151202937735506e+21,
+    9.996461532185939e+19], "potential": [1817155.5632181955,
+    17999.568359375], "E_magnitude": [61840165550.29927, 1053838528.0]}},
+    "lines": ["  checkpoint_000000.npz: t=1.0000e-10 (10 steps, 30305 dofs)",
+    "  checkpoint_000001.npz: t=2.0000e-10 (20 steps, 30305 dofs)",
+    "  checkpoint_000002.npz: t=3.0000e-10 (30 steps, 30305 dofs)",
+    "  skip checkpoint_000003.npz: 30208 dofs vs mesh 30305"],
+    "pvd": ["<?xml version=\"1.0\"?>",
+    "<VTKFile type=\"Collection\" version=\"0.1\" byte_order=\"LittleEndian\">",
+    "  <Collection>",
+    "    <DataSet timestep=\"1e-10\" part=\"0\" file=\"fields000000.vtu\" />",
+    "    <DataSet timestep=\"2e-10\" part=\"0\" file=\"fields000001.vtu\" />",
+    "    <DataSet timestep=\"3e-10\" part=\"0\" file=\"fields000002.vtu\" />",
+    "  </Collection>", "</VTKFile>"]},
+    "glow": {"files": {"Ar_plus_density/Ar_plus_density000000.vtu": {"Ar_plus_density": [2.4081979285845524e+18,
+    9.988946028530642e+16]},
+    "Ar_plus_density/Ar_plus_density000001.vtu": {"Ar_plus_density": [2.4299161388711695e+18,
+    9.991557425598002e+16]},
+    "Ar_star_density/Ar_star_density000000.vtu": {"Ar_star_density": [2.440578090884457e+18,
+    9.997845028651886e+16]},
+    "Ar_star_density/Ar_star_density000001.vtu": {"Ar_star_density": [2.4611842009674307e+18,
+    9.999052742856877e+16]},
+    "electrons/electrons000000.vtu": {"electrons": [2.443760552200376e+18,
+    9.999776655510539e+16]},
+    "electrons/electrons000001.vtu": {"electrons": [2.4095933830968745e+18,
+    9.998488055865114e+16]},
+    "energy_density/energy_density000000.vtu": {"energy_density": [2.443689492661194e+18,
+    9.990902884975573e+16]},
+    "energy_density/energy_density000001.vtu": {"energy_density": [2.442501808028553e+18,
+    9.990354682116587e+16]},
+    "mean_energy/mean_energy000000.vtu": {"mean_energy": [6685.173894064657,
+    941.0955677149786]},
+    "mean_energy/mean_energy000001.vtu": {"mean_energy": [6610.574689081418,
+    906.5621080331453]},
+    "potential/potential000000.vtu": {"potential": [13066.304497408266,
+    249.9918561583077]},
+    "potential/potential000001.vtu": {"potential": [13147.040633606912,
+    249.9973005176535]}}}, "report": {"t_s": 2e-07, "steps": 200,
+    "cathode": "z=gap (powered)", "total_fall_V": 35.10162126633767,
+    "sheath_thickness_mm": 0.3125000000000003,
+    "sheath_fraction_of_gap": 0.03125000000000003,
+    "bulk_quasineutrality_median": 1.6486005749525119,
+    "bulk_quasineutrality_max": 565.9919796048489,
+    "ne_max_m3": 9.367879478784029e+16,
+    "ne_bulk_mean_m3": 1.3041894622995484e+16,
+    "eps_range_eV": [0.0013393629301641696, 448.3114429584031],
+    "checks": {"cathode_fall_thin": True, "fall_majority_of_voltage": False,
+    "bulk_quasineutral_trend": False, "fields_finite": True},
+    "all_checks_pass": False},
+    "control": {"streamer": {"files": {"fields000000.vtu": {"electrons": [3.0503371138939806e+21,
+    9.997774788874155e+19], "ions": [3.1341658999277365e+21,
+    9.99949178623209e+19], "potential": [1797192.3503216454, 17999.6875],
+    "E_magnitude": [63506609275.82738, 1708100480.0]},
+    "fields000001.vtu": {"electrons": [3.023559230260534e+21,
+    9.99701216760913e+19], "ions": [3.0665257102587173e+21,
+    9.991255124726094e+19], "potential": [1809549.147473579,
+    17999.76171875], "E_magnitude": [63614080106.66362, 1600252160.0]},
+    "fields000002.vtu": {"electrons": [3.0394017111960275e+21,
+    9.995792149506949e+19], "ions": [3.1151203904308343e+21,
+    9.996478244762681e+19], "potential": [1817155.5632181955,
+    17999.568359375], "E_magnitude": [61840165576.78236, 1053838528.0]}},
+    "lines": ["  checkpoint_000000.npz: t=1.0000e-10 (10 steps, 30305 dofs)",
+    "  checkpoint_000001.npz: t=2.0000e-10 (20 steps, 30305 dofs)",
+    "  checkpoint_000002.npz: t=3.0000e-10 (30 steps, 30305 dofs)",
+    "  skip checkpoint_000003.npz: 30208 dofs vs mesh 30305"],
+    "pvd": ["<?xml version=\"1.0\"?>",
+    "<VTKFile type=\"Collection\" version=\"0.1\" byte_order=\"LittleEndian\">",
+    "  <Collection>",
+    "    <DataSet timestep=\"1e-10\" part=\"0\" file=\"fields000000.vtu\" />",
+    "    <DataSet timestep=\"2e-10\" part=\"0\" file=\"fields000001.vtu\" />",
+    "    <DataSet timestep=\"3e-10\" part=\"0\" file=\"fields000002.vtu\" />",
+    "  </Collection>", "</VTKFile>"]},
+    "glow": {"files": {"Ar_plus_density/Ar_plus_density000000.vtu": {"Ar_plus_density": [2.408197998723367e+18,
+    9.988953687672982e+16]},
+    "Ar_plus_density/Ar_plus_density000001.vtu": {"Ar_plus_density": [2.4299161906763587e+18,
+    9.99154515250436e+16]},
+    "Ar_star_density/Ar_star_density000000.vtu": {"Ar_star_density": [2.4405781487150413e+18,
+    9.99783606091982e+16]},
+    "Ar_star_density/Ar_star_density000001.vtu": {"Ar_star_density": [2.461184229834586e+18,
+    9.999056574384814e+16]},
+    "electrons/electrons000000.vtu": {"electrons": [2.443760457838073e+18,
+    9.999781324750869e+16]},
+    "electrons/electrons000001.vtu": {"electrons": [2.4095933964289014e+18,
+    9.998484440147266e+16]},
+    "energy_density/energy_density000000.vtu": {"energy_density": [2.443689508958815e+18,
+    9.99089722327411e+16]},
+    "energy_density/energy_density000001.vtu": {"energy_density": [2.4425018955255593e+18,
+    9.99036366604529e+16]},
+    "mean_energy/mean_energy000000.vtu": {"mean_energy": [6685.1744149961105,
+    941.0967010482045]},
+    "mean_energy/mean_energy000001.vtu": {"mean_energy": [6610.574688971826,
+    906.560755976128]},
+    "potential/potential000000.vtu": {"potential": [13066.304497550602,
+    249.9918518066406]},
+    "potential/potential000001.vtu": {"potential": [13147.040642008635,
+    249.9972991943359]}}}, "report": {"t_s": 2e-07, "steps": 200,
+    "cathode": "z=gap (powered)", "total_fall_V": 35.10162353515625,
+    "sheath_thickness_mm": 0.3125000000000003,
+    "sheath_fraction_of_gap": 0.03125000000000003,
+    "bulk_quasineutrality_median": 1.64859852101837,
+    "bulk_quasineutrality_max": 565.99318827943,
+    "ne_max_m3": 9.36787352653262e+16,
+    "ne_bulk_mean_m3": 1.3041890925758174e+16,
+    "eps_range_eV": [0.0013393612751887677, 448.31128489530096],
+    "checks": {"cathode_fall_thin": True, "fall_majority_of_voltage": False,
+    "bulk_quasineutral_trend": False, "fields_finite": True},
+    "all_checks_pass": False}}}
+# The streamer's VTU fields are float32: an exp that rounds otherwise at
+# one entry by a float64 ulp can round the float32 value otherwise, which
+# moves a norm by up to ~1e-10 at 30,305 entries: 1e-9. The glow's fields
+# (ascii float64) and the report: 1e-12. On the CPU the port's files equal
+# the JAX tools' byte for byte; the control lies 1.5e-6 to 2.1e-6 off.
+SERIES_RTOL = {"streamer": 1e-9, "glow": 1e-12, "report": 1e-12}
+SERIES_PROCESS_S = 300
+
+
+def _nested_gap(a, b) -> float:
+    """The largest relative gap over the numbers of two nested records
+    (inf where their keys, lengths, strings or flags differ)."""
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or sorted(a) != sorted(b):
+            return float("inf")
+        return max([_nested_gap(a[k], b[k]) for k in b] or [0.0])
+    if isinstance(b, (list, tuple)):
+        if not isinstance(a, (list, tuple)) or len(a) != len(b):
+            return float("inf")
+        return max([_nested_gap(x, y) for x, y in zip(a, b)] or [0.0])
+    if isinstance(b, (bool, str)) or b is None:
+        return 0.0 if a == b else float("inf")
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def start_postprocess() -> list:
+    """Phase 13's seeded run directories (tools/series_checkpoints.py) and
+    its three processes started on the card: the streamer and glow
+    exports and the glow report (the runs go with the jobs,
+    `stop_processes`)."""
+    import importlib.util
+    import tempfile
+
+    spec = importlib.util.spec_from_file_location(
+        "series_checkpoints", ROOT / "tools" / "series_checkpoints.py")
+    seeded = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(seeded)
+    runs = Path(tempfile.mkdtemp(prefix="chip_smoke_series_runs_"))
+    seeded.streamer_trail(runs / "streamer", **seeded.STREAMER_WINDOW)
+    seeded.glow_run(runs / "glow", seeded.GLOW50["n_dofs"])
+    export = "fedm_tpu_torch.export_series"
+    jobs = [start_process([export, "--run", runs / "streamer", "--model",
+                           "streamer", "--out", "{tmp}/out"],
+                          "export_series_streamer"),
+            start_process([export, "--run", runs / "glow", "--model",
+                           "glow", "--out", "{tmp}/out"],
+                          "export_series_glow"),
+            start_process(["fedm_tpu_torch.glow_report", runs / "glow",
+                           "--out", "{tmp}/report.md"], "glow_report")]
+    log("phase 13: 3 processes started")
+    return jobs + [{"name": "seeded runs", "proc": None, "tmp": runs}]
+
+
+def postprocess(jobs: list, card) -> dict:
+    """Phase 13: the processes of `start_postprocess` waited for, their
+    outputs held to the JAX tools' (REF_SERIES), the control refused."""
+    from fedm_tpu_torch.io.vtu import read_vtu
+
+    streamer, glow, report = jobs[:3]
+    lines = finish_process(streamer, SERIES_PROCESS_S).splitlines()
+    finish_process(glow, SERIES_PROCESS_S)
+    finish_process(report, SERIES_PROCESS_S)
+    out = {"card": card, "process_s": {j["name"]: j["wall_s"]
+                                       for j in jobs[:3]}}
+
+    def norms(d: Path, fields) -> dict:
+        res = {}
+        for p in sorted(d.rglob("*.vtu")):
+            vals = {}
+            for f in fields:
+                try:
+                    v = read_vtu(p, f)
+                except KeyError:
+                    continue
+                vals[f] = [float(np.linalg.norm(v)), float(np.abs(v).max())]
+            res[str(p.relative_to(d))] = vals
+        return res
+
+    md = (report["tmp"] / "report.md").read_text()
+    m = re.search(r"```json\n(.*)\n```", md, re.S)
+    check(m is not None, "phase 13: the report holds no JSON block")
+    s_out, g_out = streamer["tmp"] / "out", glow["tmp"] / "out"
+    got = {"streamer": {"files": norms(s_out, ("electrons", "ions",
+                                               "potential", "E_magnitude")),
+                        "lines": lines[:-1],
+                        "pvd": (s_out / "fields.pvd").read_text()
+                        .splitlines()},
+           "glow": {"files": norms(g_out, (
+               "energy_density", "Ar_star_density", "Ar_plus_density",
+               "electrons", "potential", "mean_energy"))},
+           "report": json.loads(m[1])}
+    gaps = {k: _nested_gap(got[k], REF_SERIES[k]) for k in SERIES_RTOL}
+    control = {k: _nested_gap(got[k], REF_SERIES["control"][k])
+               for k in SERIES_RTOL}
+    out.update(gaps=gaps, control_gaps=control,
+               streamer_vtus=len(got["streamer"]["files"]),
+               glow_vtus=len(got["glow"]["files"]),
+               all_checks_pass=got["report"]["all_checks_pass"])
+    log(f"phase 13: the processes in {out['process_s']} s; gaps to the "
+        f"JAX tools {gaps}, to the float32 control {control}; streamer "
+        f"lines {lines}")
+    for k, tol in SERIES_RTOL.items():
+        check(gaps[k] <= tol, f"phase 13 {k}: {gaps[k]:.3e} off the JAX "
+                              f"tools' outputs > {tol:.0e}")
+        check(not control[k] <= tol, f"phase 13 {k}: the float32 control "
+                                     f"holds the tolerance ({control[k]:.3e})")
     return out
 
 
@@ -3506,30 +4116,45 @@ def _slab_launches(out: dict) -> dict:
             "window": out["window"]["k1_launches"]}
 
 
+def window_lane(k1, card) -> int:
+    """`--only window`: phases 4 and 4b, their results as one JSON line."""
+    phase("4 fresh window")
+    window, wmodel, moved = fresh_window(k1, card)
+    phase("4b rescue")
+    rescue_out = rescue(k1, card, wmodel, moved)
+    signal.alarm(0)
+    print(json.dumps({"fresh_window": window, "rescue": rescue_out}))
+    return 0
+
+
+def finish_lane(job: dict) -> dict:
+    """The results line of a `--only` run started by `start_process`,
+    its log copied into this one's."""
+    job["waiter"].join(max(1.0, BUDGET_S - (time.perf_counter()
+                                            - job["t0"])))
+    for line in (job["tmp"] / "stderr").read_text().splitlines():
+        print(f"  | {line}", file=sys.stderr)
+    sys.stderr.flush()
+    return json.loads(finish_process(job, BUDGET_S).strip()
+                      .splitlines()[-1])
+
+
 def cards_only(k1, kind: str, count: int, card: str, only: str) -> int:
     """`--only cards` (phase 11, then phase 12) or `--only slabs` (phase
     12 alone), after phases 0 and 1; K1's row from phase 11's stacked
     table on card 0, or from phase 12's electrode ranks."""
     check(count >= 2, f"--only {only} needs two or more cards ({count})")
-    out = slab_out = None
+    out = None
     if only == "cards":
-        # phase 12 runs beside phase 11, as `--only slabs` in a process of
-        # its own (its own budget, its own ranks), on the same cards: each
-        # phase waits mostly on its ranks' hosts
-        child = start_slabs_child()
-        try:
-            phase("11 cards")
-            budget(CARDS_BUDGET_S)
-            out = cards(k1, count, None)
-            phase("12 slabs")
-            budget(SLABS_BUDGET_S)
-            slab_out = wait_slabs_child(child)
-        finally:
-            stop_slab_process(child)
-    else:
-        phase("12 slabs")
-        budget(SLABS_BUDGET_S)
-        slab_out = slabs(k1, count)
+        # phase 12 after phase 11, each with its own budget: run side by
+        # side, their ranks' hosts contended and phase 12's launch ran past
+        # its limit on four H100s (F4)
+        phase("11 cards")
+        budget(CARDS_BUDGET_S)
+        out = cards(k1, count, None)
+    phase("12 slabs")
+    budget(SLABS_BUDGET_S)
+    slab_out = slabs(k1, count)
     signal.alarm(0)
     launches = {} if out is None else {"cards": _cards_launches(out)}
     launches["slabs"] = _slab_launches(slab_out)
@@ -3566,40 +4191,6 @@ def cards_only(k1, kind: str, count: int, card: str, only: str) -> int:
     return 0
 
 
-def start_slabs_child() -> dict:
-    """`python3 chip_smoke.py --only slabs` started in a session of its
-    own, its output in files (`stop_slab_process` ends it)."""
-    import tempfile
-
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_slabs_"))
-    with open(tmp / "stdout", "w") as so, open(tmp / "stderr", "w") as se:
-        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
-                                 "--only", "slabs"], stdout=so, stderr=se,
-                                cwd=ROOT, start_new_session=True)
-    log(f"phase 12 slabs started beside phase 11 (pid {proc.pid})")
-    return {"proc": proc, "tmp": tmp, "t0": time.perf_counter()}
-
-
-def wait_slabs_child(child: dict) -> dict:
-    """Phase 12's results from `start_slabs_child`'s process: its log
-    copied to this one's, its exit code 0, its results line read."""
-    proc = child["proc"]
-    try:
-        proc.wait(timeout=max(1.0, BUDGET_S + SLABS_BUDGET_S
-                              - (time.perf_counter() - child["t0"])))
-    except subprocess.TimeoutExpired:
-        pass
-    err = (child["tmp"] / "stderr").read_text()
-    for line in err.splitlines():
-        print(f"  | {line}", file=sys.stderr)
-    sys.stderr.flush()
-    check(proc.poll() == 0, f"phase 12 (--only slabs) failed, rc "
-                            f"{proc.poll()}: {err[-3000:]}")
-    text = (child["tmp"] / "stdout").read_text()
-    line = next(x for x in text.splitlines() if x.startswith('{"kernels"'))
-    return json.loads(line)["slabs"]
-
-
 def slab_k1_case(k1) -> dict:
     """K1's compact form at the main path's electrode facet table (C = 3,
     float32), timed against its plain version (`--only slabs`)."""
@@ -3621,9 +4212,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="the port's smoke test on "
                                              "the card(s)")
-    ap.add_argument("--only", choices=["cards", "slabs"], default=None,
+    ap.add_argument("--only", choices=["cards", "slabs", "window"],
+                    default=None,
                     help="cards: phases 0, 1, 11 and 12 (the multi-card "
-                         "checks); slabs: phases 0, 1 and 12 alone")
+                         "checks); slabs: phases 0, 1 and 12 alone; "
+                         "window: phases 0, 1, 4 and 4b, their results "
+                         "as one JSON line (the full run starts it beside "
+                         "phases 5-10)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3657,6 +4252,8 @@ def main() -> int:
         if "ptxas" in line:
             log(line.strip())
 
+    if args.only == "window":
+        return window_lane(k1, card)
     if args.only is not None:
         return cards_only(k1, kind, count, card, args.only)
 
@@ -3804,36 +4401,52 @@ def main() -> int:
     phase("12 slabs")
     slabs_one = slabs_one_rank(model, state)
 
-    phase("4 fresh window")
+    # Phases 4 and 4b (the fresh window and its rescue) run in a process of
+    # their own (`--only window`) beside 5-10, and each process a phase
+    # starts runs beside the phase: host work, mostly, on the same card.
+    # `stop_processes` ends whatever still runs after a failure.
     del model, driver, state
-    window, wmodel, moved = fresh_window(k1, card)
+    jobs = []
+    try:
+        window_job = start_process(["chip_smoke", "--only", "window"],
+                                   "window_lane")
+        jobs.append(window_job)
+        phase("5 glow")
+        glow_out = glow(k1, card)
 
-    phase("4b rescue")
-    rescue_out = rescue(k1, card, wmodel, moved)
-    del wmodel, moved
+        phase("6 options")
+        options_out = options(k1, card)
 
-    phase("5 glow")
-    glow_out = glow(k1, card)
+        # phase 8 runs before 7, whose 2D run takes the length the budget
+        # left allows
+        phase("8 extended")
+        jobs.append(start_extended_entry())
+        ext_out = extended(k1, card, jobs[-1])
 
-    phase("6 options")
-    options_out = options(k1, card)
+        phase("9 sweep")
+        sweep_out, sweep_states = sweep(k1, card)
 
-    # phase 8 runs before 7, whose 2D run takes the length the budget left
-    # allows
-    phase("8 extended")
-    ext_out = extended(k1, card)
+        # the processes of phases 9a, 10 and 13 run beside 9b
+        example_job, dd_job = start_streamer_example(), start_dd_scale()
+        series_jobs = start_postprocess()
+        jobs += [example_job, dd_job] + series_jobs
+        phase("9b sweep options")
+        sweep_options_out = sweep_options(k1, card, sweep_states)
+        phase("9a streamer example")
+        example_out = streamer_example(example_job, card)
+        phase("13 post-processing")
+        series_out = postprocess(series_jobs, card)
+        phase("10 dd_scale")
+        dd_out = dd_scale(card, job=dd_job)
+        phase("4 fresh window")
+        lane = finish_lane(window_job)
+        window, rescue_out = lane["fresh_window"], lane["rescue"]
 
-    phase("9 sweep")
-    sweep_out = sweep(k1, card)
-
-    phase("9b streamer example")
-    example_out = streamer_example(card)
-
-    phase("10 dd_scale")
-    dd_out = dd_scale(card)
-
-    phase("7 tof")
-    tof_out = tof(k1, card)
+        phase("7 tof")
+        jobs.append(start_tof_quick())
+        tof_out = tof(k1, card, jobs[-1])
+    finally:
+        stop_processes(jobs)
 
     phase("11 cards")
     cards_out = None
@@ -3870,6 +4483,8 @@ def main() -> int:
                      + sum(tof_out["2d_launches"].values())
                      + sum(ext_out["launches"].values())
                      + sum(sweep_out["launches"].values())
+                     + sum(sum(o["launches"].values())
+                           for o in sweep_options_out.values())
                      + dd_out["k1_launches"]
                      + (0 if slabs_out is None else sum(
                          sum(v) for v in
@@ -3883,12 +4498,17 @@ def main() -> int:
                              "tof_2d": tof_out["2d_launches"],
                              "extended": ext_out["launches"],
                              "sweep": sweep_out["launches"],
+                             "sweep_options": {
+                                 k: o["launches"]
+                                 for k, o in sweep_options_out.items()},
                              "dd_scale": dd_out["k1_launches"],
                              "cards": (None if cards_out is None
                                        else _cards_launches(cards_out)),
                              "slabs": (None if slabs_out is None
                                        else _slab_launches(slabs_out))},
         "sweep_launches_by_shape": sweep_out["launches_by_shape"],
+        "sweep_options_launches_by_shape": {
+            k: o["launches_by_shape"] for k, o in sweep_options_out.items()},
         "extended_launches_by_shape":
             ext_out["distributed_step"]["launches_by_shape"],
         "glow_launches_by_shape": glow_out["launches_by_shape"],
@@ -3917,10 +4537,11 @@ def main() -> int:
         "fresh_window": window, "rescue": rescue_out, "glow": glow_out,
         "options": options_out,
         "tof": tof_out, "extended": ext_out, "sweep": sweep_out,
-        "streamer_example": example_out, "dd_scale": dd_out,
+        "sweep_options": sweep_options_out,
+        "streamer_example": example_out, "post_processing": series_out,
+        "dd_scale": dd_out,
         "cards": cards_out, "slabs": {"one_rank": slabs_one,
-                                      "cards": slabs_out},
-        "depth": _depth}))
+                                      "cards": slabs_out}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 
@@ -14,3 +16,11 @@ def resolve_device(device="cuda") -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def check_device(device) -> None:
+    """Stop with an error, before any work, when `device` is a CUDA device
+    and none is present: the entry points never fall back to the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        sys.exit(f"no CUDA device for --device {device}; pass --device cpu "
+                 "to run on the CPU")

@@ -26,8 +26,8 @@ import time
 
 import torch
 
+from ._device import check_device
 from .devtime import card_of, on_card
-from .examples._tof import check_device
 from .models.streamer import StreamerConfig, StreamerModel
 from .parallel import ranks
 

@@ -5,7 +5,6 @@ write them."""
 from __future__ import annotations
 
 import argparse
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -21,14 +20,6 @@ def parse_args(prog: str, doc: str, argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device of the run (default cuda)")
     return ap.parse_args(argv)
-
-
-def check_device(device) -> None:
-    """Stop with an error, before any work, when `device` is a CUDA device
-    and none is present: the entry points never fall back to the CPU."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        sys.exit(f"no CUDA device for --device {device}; pass --device cpu "
-                 "to run on the CPU")
 
 
 def set_output_dir(output_dir) -> None:

@@ -37,9 +37,9 @@ from pathlib import Path
 
 import numpy as np
 
+from .._device import check_device
 from ..devtime import card_of, on_card
 from ..parallel import ranks
-from ._tof import check_device
 
 
 def parse_args(argv=None) -> argparse.Namespace:

@@ -30,7 +30,8 @@ from ..io import files, log, mesh_statistics, output_files
 from ..io.checkpoint import save_checkpoint
 from ..io.output import OutputSeries, file_output
 from ..models.glow import GlowConfig, GlowDischargeModel
-from ._tof import check_device, set_output_dir
+from .._device import check_device
+from ._tof import set_output_dir
 
 
 def main(file_input=None, output_dir=None, quick=False, T_final=None,

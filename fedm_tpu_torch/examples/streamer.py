@@ -20,7 +20,8 @@ import torch
 from ..io import files, log, mesh_statistics, output_files
 from ..io.output import OutputSeries, file_output
 from ..models.streamer import StreamerConfig, StreamerModel
-from ._tof import check_device, set_output_dir
+from .._device import check_device
+from ._tof import set_output_dir
 
 
 def main(output_dir=None, quick=False, f32=False, T_final=None,

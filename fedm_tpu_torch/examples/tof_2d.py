@@ -14,7 +14,8 @@ Usage: python -m fedm_tpu_torch.examples.tof_2d [-o OUTPUT_DIR] [--quick]
 
 from __future__ import annotations
 
-from ._tof import check_device, parse_args, run_and_write, set_output_dir
+from .._device import check_device
+from ._tof import parse_args, run_and_write, set_output_dir
 from ..models.tof import TimeOfFlight2D, TofConfig
 
 

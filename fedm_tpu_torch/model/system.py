@@ -361,6 +361,44 @@ class ShardOperators(StepOperators):
         return self.group.all_reduce(r)
 
 
+def _block_precond(ops: StepOperators, tzline, tz_solver: Callable, ell,
+                   row_weights: Optional[torch.Tensor]) -> Callable:
+    """`CoupledSystem.block_precond_builder` on `ops`' rows: `tzline` the
+    system's transport z-lines (or None), `tz_solver(blocks, sub, sup)`
+    their solve, `ell` (eq, solve of the row's [n_rows] right-hand side)
+    or None."""
+    tz = tzline if row_weights is None else None
+
+    def build(delta):
+        if tz is not None:
+            eqs, _, m_sub, m_sup = tz
+            blocks, (sub, sup) = ops.jacobian_blocks(
+                delta, (eqs, m_sub, m_sup))
+            tz_solve = tz_solver(blocks, sub, sup)
+        else:
+            blocks = ops.jacobian_blocks(delta)
+            tz_solve = None
+        if row_weights is not None:
+            blocks = row_weights[:, :, None] * blocks
+        inv = invert_blocks(blocks)
+
+        def M(r):
+            y = block_apply(inv, r)
+            if tz_solve is not None:
+                y[:, list(tz[0])] = tz_solve(r[:, list(tz[0])])
+            if ell is not None:
+                eq, solve = ell
+                r_eq = r[:, eq]
+                if row_weights is not None:
+                    r_eq = r_eq / row_weights[:, eq]
+                y[:, eq] = solve(r_eq)
+            return y
+
+        return M
+
+    return build
+
+
 class CoupledSystem:
     def __init__(self, cell_batch: CellBatch, n_eq: int, bcs: BCSet,
                  newton: NewtonConfig = NewtonConfig()):
@@ -593,10 +631,14 @@ class CoupledSystem:
                         torch.as_tensor(d == n_i, dtype=dt, device=dev),
                         torch.as_tensor(d == -n_i, dtype=dt, device=dev))
 
-    def _tzline_solver(self, blocks, sub, sup) -> Callable:
+    def _tzline_solver(self, blocks, sub, sup, grid=None) -> Callable:
         """r [n_dofs, n_sel] -> the per-z-line tridiagonal solves with the
-        exact (sub, diag, sup) couplings, diag from the node blocks."""
-        eqs, grid = self._tzline[:2]
+        exact (sub, diag, sup) couplings, diag from the node blocks.
+        `grid`: the lines' dof ids in place of the node grid (a
+        `BatchedSystem`'s members' grids stacked, [B*n_i, n_j])."""
+        eqs = self._tzline[0]
+        if grid is None:
+            grid = self._tzline[1]
         flat = grid.reshape(-1)
         # on z-slabs a line crosses every slab: the couplings are gathered
         # once, each right-hand side per application, and every rank solves
@@ -644,37 +686,8 @@ class CoupledSystem:
         solve. With `row_weights` [n_dofs, n_eq] (a row-equilibrated
         residual) the blocks are the scaled w*B, the elliptic solve sees
         the unscaled r/w, and no z-line solve runs."""
-        tz = self._tzline if row_weights is None else None
-
-        def build(delta):
-            if tz is not None:
-                eqs, _, m_sub, m_sup = tz
-                blocks, (sub, sup) = ops.jacobian_blocks(
-                    delta, (eqs, m_sub, m_sup))
-                tz_solve = self._tzline_solver(blocks, sub, sup)
-            else:
-                blocks = ops.jacobian_blocks(delta)
-                tz_solve = None
-            if row_weights is not None:
-                blocks = row_weights[:, :, None] * blocks
-            inv = invert_blocks(blocks)
-            ell = self._ell
-
-            def M(r):
-                y = block_apply(inv, r)
-                if tz_solve is not None:
-                    y[:, list(tz[0])] = tz_solve(r[:, list(tz[0])])
-                if ell is not None:
-                    eq, solve = ell
-                    r_eq = r[:, eq]
-                    if row_weights is not None:
-                        r_eq = r_eq / row_weights[:, eq]
-                    y[:, eq] = solve(r_eq)
-                return y
-
-            return M
-
-        return build
+        return _block_precond(ops, self._tzline, self._tzline_solver,
+                              self._ell, row_weights)
 
     def row_weights(self, ops: StepOperators,
                     delta: torch.Tensor) -> torch.Tensor:
@@ -804,14 +817,11 @@ class BatchedSystem:
     takes the members as trailing right-hand sides.
 
     `step` is `vmap` of the JAX package's `CoupledSystem._step`: the
-    whole-solve `newton_krylov` for every configuration. Row equilibration
-    and the transport z-lines are not batched (they raise)."""
+    whole-solve `newton_krylov` for every configuration, row equilibration
+    (each member's own weights and absolute target) and the transport
+    z-lines (every member's lines in one solve) included."""
 
     def __init__(self, system: CoupledSystem, n_members: int):
-        if system.row_scaled or system._tzline is not None:
-            raise NotImplementedError(
-                "batched steps of a row-scaled system or one with transport "
-                "z-lines are not ported")
         self.inner = system
         self.n_members = B = int(n_members)
         self.n_eq = system.n_eq
@@ -832,6 +842,15 @@ class BatchedSystem:
                 arrays[f] = a
             self.batches.append((batch.local_view(arrays, B * n), kernel))
         self.mask = system.bcs.mask.repeat(B, 1)
+        # the transport z-lines: member b's lines at its dofs b*n on, the
+        # cell masks repeated for the B copies of the cell batch
+        self._tzline = None
+        if system._tzline is not None:
+            eqs, grid, m_sub, m_sup = system._tzline
+            off = torch.arange(B, device=grid.device) * n
+            self._tzline = (eqs, (grid[None] + off[:, None, None]).reshape(
+                -1, grid.shape[1]), m_sub.repeat(B, 1, 1),
+                m_sup.repeat(B, 1, 1))
 
     @property
     def dtype(self):
@@ -850,27 +869,28 @@ class BatchedSystem:
         return ops.residual((u - u_old).reshape(ops.n_dofs, -1)
                             .to(ops.dtype)).reshape(u.shape)
 
-    def block_precond_builder(self, ops: BatchedStepOperators) -> Callable:
-        """delta -> M on [B*n_dofs, n_eq]: the inverted node blocks of every
-        member, and on the elliptic row one solve with the B members'
-        columns as right-hand sides [n_dofs, B]."""
-        B, ell = self.n_members, self.inner._ell
+    def block_precond_builder(self, ops: BatchedStepOperators,
+                              row_weights: Optional[torch.Tensor] = None
+                              ) -> Callable:
+        """delta -> M on [B*n_dofs, n_eq]: `CoupledSystem`'s, every member's
+        node blocks (and z-line solves) at once, and on the elliptic row
+        one solve with the B members' columns as right-hand sides
+        [n_dofs, B]."""
+        B, inner = self.n_members, self.inner
+        ell = None
+        if inner._ell is not None:
+            eq, solve = inner._ell
 
-        def build(delta):
-            inv = invert_blocks(ops.jacobian_blocks(delta))
-            if ell is None:
-                return lambda r: block_apply(inv, r)
-            eq, solve = ell
+            def solve_members(r_eq):
+                return solve(r_eq.reshape(B, -1).t()).t().reshape(-1)
 
-            def M(r):
-                y = block_apply(inv, r)
-                cols = r[:, eq].reshape(B, -1).t()
-                y[:, eq] = solve(cols).t().reshape(-1).to(y.dtype)
-                return y
+            ell = (eq, solve_members)
 
-            return M
+        def tz_solver(blocks, sub, sup):
+            return inner._tzline_solver(blocks, sub, sup, self._tzline[1])
 
-        return build
+        return _block_precond(ops, self._tzline, tz_solver, ell,
+                              row_weights)
 
     def step(self, u_guess, u_old, u_old1, aux: Dict, params: StepParams,
              active: Optional[np.ndarray] = None):
@@ -895,15 +915,35 @@ class BatchedSystem:
         def stacked(fn):
             return lambda d: fn(view(d)).reshape(shape)
 
-        R_hi = None
-        if self.inner._hi_enabled():
+        inner, newton = self.inner, self.newton
+        delta = (u_guess - u_old).to(self.dtype)
+        residual, jacobian_action = ops.residual, ops.jacobian_action
+        R_hi = w = None
+        kw = {}
+        if inner.row_scaled:
+            # `_step_row_scaled` of every member: the weights at the start,
+            # each member's absolute target from its own state
+            w = inner.row_weights(ops, view(delta))
+            if inner.row_scaled_atol_rel > 0:
+                kw["atol"] = np.maximum(newton.atol, np.array([
+                    inner.row_scaled_atol_rel * float(_norm(
+                        u_old[b].to(ops.dtype))) for b in range(shape[0])]))
+            if ops.dtype == torch.float32 and newton.stol == 0.0:
+                newton = dataclasses.replace(newton, stol=1e-3)
+
+            def residual(d):
+                return w * ops.residual(d)
+
+            def jacobian_action(d):
+                J = ops.jacobian_action(d)
+                return lambda v: w * J(v)
+        elif inner._hi_enabled():
             R_hi = stacked(self.operators(u_old, u_old1, params,
                                           torch.float64, aux).residual)
-        pb = self.block_precond_builder(ops)
-        delta = (u_guess - u_old).to(self.dtype)
+        pb = self.block_precond_builder(ops, w)
         delta, info = newton_krylov_batched(
-            stacked(ops.residual),
-            lambda d: stacked(ops.jacobian_action(view(d))),
-            delta, self.newton, lambda d: stacked(pb(view(d))),
-            residual_hi=R_hi, active=active)
+            stacked(residual),
+            lambda d: stacked(jacobian_action(view(d))),
+            delta, newton, lambda d: stacked(pb(view(d))),
+            residual_hi=R_hi, active=active, **kw)
         return u_old + delta.to(u_old.dtype), info

@@ -409,16 +409,20 @@ def newton_krylov_batched(residual: Callable, jacobian_action: Callable,
                           delta: torch.Tensor, config: NewtonConfig,
                           precond_builder: Callable,
                           residual_hi: Optional[Callable] = None,
-                          active: Optional[np.ndarray] = None):
+                          active: Optional[np.ndarray] = None,
+                          atol: Optional[np.ndarray] = None):
     """`newton_krylov` of B independent systems on delta [B, ...]: each
     member has its own target, counters and verdict, iterates until it
     stops, and is not touched after. Members outside `active` do not
-    iterate. Returns (delta, NewtonInfo of [B] numpy arrays)."""
+    iterate. `atol` [B]: each member's absolute target in place of
+    `config.atol` (a row-scaled system's is relative to the member's own
+    state). Returns (delta, NewtonInfo of [B] numpy arrays)."""
     B = delta.shape[0]
     act = np.ones(B, bool) if active is None else np.asarray(active, bool)
     res0 = residual if residual_hi is None else residual_hi
     f0 = norm_b(res0(delta)).cpu().numpy()
-    target = np.maximum(config.rtol * f0, config.atol)
+    target = np.maximum(config.rtol * f0,
+                        config.atol if atol is None else atol)
     fnorm, linres = f0.copy(), np.full(B, np.inf)
     k = np.zeros(B, int)
     step_ok = np.zeros(B, bool)

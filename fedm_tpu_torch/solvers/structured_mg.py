@@ -158,22 +158,30 @@ class StructuredPoissonMG:
     def _vcycle(self, k: int, R: torch.Tensor) -> torch.Tensor:
         if k == self.n_levels - 1:
             n_i, n_j = self._shapes[k]
+            if R.dim() == 3:
+                # each right-hand side by itself, as a single one is
+                return torch.stack([self._vcycle(k, X) for X in R])
             return (self.cinv @ R.T.reshape(-1)).reshape(n_j, n_i).T
         S = self.S[k]
         Z = self._smooth(S, R)
         res = R - stencil_matvec(S, Z)
-        Rc = restrict_axis(res.T, self.wx[k]).T
+        Rc = restrict_axis(res.mT, self.wx[k]).mT
         Rc = restrict_axis(Rc, self.wz[k])
         Rc = torch.where(self._masks[k + 1], 0.0, Rc)
         Ec = self._vcycle(k + 1, Rc)
-        E = prolong_axis(Ec.T, self.wx[k]).T
+        E = prolong_axis(Ec.mT, self.wx[k]).mT
         E = prolong_axis(E, self.wz[k])
         Z = Z + torch.where(self._masks[k], 0.0, E)
         return Z + self._smooth(S, R - stencil_matvec(S, Z))
 
     def precond(self, r: torch.Tensor) -> torch.Tensor:
         """One V-cycle approximating A^-1 r; r flat [n_dofs] in the
-        canonical `id = j*n_i + i` layout."""
+        canonical `id = j*n_i + i` layout, or [n_dofs, B]: B independent
+        right-hand sides (`BatchedSystem`), in grid layout [B, n_i, n_j]."""
+        if r.dim() == 2:
+            X = r.t().reshape(-1, self.n_j, self.n_i).mT
+            Z = self._vcycle(0, X.to(self.dtype))
+            return Z.mT.reshape(r.shape[1], -1).t().to(r.dtype)
         X = r.reshape(self.n_j, self.n_i).T
         Z = self._vcycle(0, X.to(self.dtype))
         return Z.T.reshape(-1).to(r.dtype)

@@ -775,3 +775,39 @@ def test_k1_launches_per_batched_krylov_iteration_do_not_grow_with_b(cuda):
             v = M(J(v))
         counts.append(launch_count())
     assert counts[0] == counts[1] > 0
+
+
+@pytest.mark.parametrize("option", ["tzline", "row_scaled_f32"])
+def test_sweep_option_attempt_matches_single_steps(cuda, option):
+    """One batched attempt of 2 members under the transport z-lines
+    (float64) or row equilibration (float32) on the card, each member held
+    to the single-system step from the same state: the same Newton
+    iterations and verdict, the state within 1e-11 (float64) or 1e-8
+    (float32: the batch scatters through the ELL table, the single system
+    through its own layout) of each column's max; K1 launched."""
+    from fedm_tpu_torch.parallel import BatchedSweep
+
+    kw = ({"poisson_precond": "mg-zline", "transport_zline": True}
+          if option == "tzline" else
+          {"row_scaled": True, "dtype": torch.float32})
+    rtol = 1e-11 if option == "tzline" else 1e-8
+    cfg = StreamerConfig(nx=10, ny=14, **kw)
+    model = StreamerModel(cfg, device=cuda)
+    sweep = BatchedSweep(model.system, monitor_idx=1, ttol=cfg.ttol,
+                         dt_min=cfg.dt_min, dt_max=cfg.dt_max)
+    st = sweep.from_states([StreamerModel(
+        StreamerConfig(nx=10, ny=14, seed_amplitude=a, **kw),
+        device=cuda).initial_state() for a in (5e18, 1e19)])
+    params = StepParams(st.t + st.dt, st.dt, st.dt_old)
+    launches = launch_count()
+    u_b, info_b = sweep.batched(2).step(st.u, st.u, st.u_old1, {}, params)
+    assert launch_count() > launches
+    for b in range(2):
+        u_s, info_s = model.system.step(
+            st.u[b], st.u[b], st.u_old1[b], {},
+            StepParams(*(float(x[b]) for x in params)))
+        assert int(info_b.iters[b]) == int(info_s.iters) > 0
+        assert bool(info_b.converged[b]) == bool(info_s.converged)
+        scale = u_s.abs().amax(dim=0)
+        assert float(((u_b[b] - u_s).abs().amax(dim=0) / scale).max()) \
+            <= rtol

@@ -27,13 +27,24 @@ from the same state at the same parameters (Newton iterations and the
 state's gap), and the gaps of the port's own initial states.
 
 With --spread N it prints, between the two, the JAX package's own gaps
-when its sweep starts from the initial states scaled by (1 + 1e-15 *
-seeded noise), for N seeds: the step error is a ratio of small
+when its sweep starts from the initial states scaled by (1 + eps *
+seeded noise), eps --spread-eps (default 1e-15), for N seeds, with each
+seed's counts (the first attempt's Newton iterations, the accepted and
+rejected counts after the attempts): the step error is a ratio of small
 differences, so over `run_until`'s 56 attempts the members' rounding
 reaches max_error and dt far above it.
 
+--config picks the sweep's option path (`chip_smoke.py` phase 9b): the
+default StreamerConfig (phase 9), `tzline` (poisson_precond "mg-zline"
+with the transport z-lines) or `row_scaled_f32` (row equilibration in
+float32), the configurations of tools/port_reference_options.py. The
+members start from the default configuration's initial states (phase
+9's) whatever the option: it changes the steps, not the initial
+condition. A horizon of 0 skips `run_until`.
+
     JAX_PLATFORMS=cpu python tools/port_reference_sweep.py [--port]
-        [--spread N] [--nx 80 --ny 160] [--amps 2e18,5e18,1e19]
+        [--config default|tzline|row_scaled_f32] [--spread N]
+        [--spread-eps 1e-15] [--nx 80 --ny 160] [--amps 2e18,5e18,1e19]
         [--attempts 3] [--horizon 2e-11]
 """
 
@@ -60,6 +71,23 @@ from fedm_tpu.models.streamer import StreamerModel as JaxModel  # noqa: E402
 from fedm_tpu.parallel import BatchedSweep as JaxSweep  # noqa: E402
 
 AMPS = np.geomspace(1e18, 2e19, 8)
+CONFIGS = {"default": {},
+           "tzline": dict(poisson_precond="mg-zline", transport_zline=True),
+           "row_scaled_f32": dict(row_scaled=True)}
+
+
+def jax_config(nx, ny, config, **kw) -> JaxConfig:
+    f32 = {"dtype": jnp.float32} if config.endswith("f32") else {}
+    return JaxConfig(nx=nx, ny=ny, **CONFIGS[config], **f32, **kw)
+
+
+def port_config(nx, ny, config):
+    import torch
+
+    from fedm_tpu_torch.models.streamer import StreamerConfig
+
+    f32 = {"dtype": torch.float32} if config.endswith("f32") else {}
+    return StreamerConfig(nx=nx, ny=ny, **CONFIGS[config], **f32)
 
 
 def col_norms(u) -> list:
@@ -77,12 +105,23 @@ def record(st) -> dict:
             "u_norms": col_norms(st.u)}
 
 
-def jax_spread(states, nx, ny, attempts, horizon, ref, eps, seeds):
+def first_attempt(sw, st) -> dict:
+    """Each member's first attempt (one vmapped step from the stacked
+    states): its converged flag and Newton iterations."""
+    params = JaxParams(jnp.asarray(st.t + st.dt), jnp.asarray(st.dt),
+                       jnp.asarray(st.dt_old))
+    _, info = sw._vstep(st.u, st.u, st.u_old1, {}, params)
+    return {"converged": np.asarray(info.converged).tolist(),
+            "newton_iterations": np.asarray(info.iters).tolist()}
+
+
+def jax_spread(states, nx, ny, attempts, horizon, ref, eps, seeds,
+               config="default"):
     """The JAX package's own sweep from its initial states scaled by
     (1 + eps * noise), per seeded noise: the largest gaps to the
-    unperturbed run `ref` after the attempts and after `run_until` (the
-    range a port that rounds differently may land in)."""
-    cfg = JaxConfig(nx=nx, ny=ny)
+    unperturbed run `ref` after the attempts and after `run_until`, and
+    the counts (the range a port that rounds differently may land in)."""
+    cfg = jax_config(nx, ny, config)
     sw = JaxSweep(JaxModel(cfg).system, monitor_idx=1, ttol=cfg.ttol,
                   dt_min=cfg.dt_min, dt_max=cfg.dt_max)
     out = []
@@ -91,44 +130,46 @@ def jax_spread(states, nx, ny, attempts, horizon, ref, eps, seeds):
         pert = [dataclasses.replace(s, u=jnp.asarray(np.asarray(s.u) * (
             1 + eps * rng.standard_normal(s.u.shape)))) for s in states]
         st = sw.from_states(pert)
+        rec = {"first": first_attempt(sw, st)}
         for _ in range(attempts):
             st = sw.attempt(st, {})
-        rec = {"attempts": gaps(record(st), ref["attempts"][-1])}
-        st = sw.run_until(st, horizon, {})
-        rec["run_until"] = gaps(record(st), ref["run_until"])
+        rec["attempts"] = gaps(record(st), ref["attempts"][-1])
+        rec["counts"] = {k: np.asarray(getattr(st, k)).tolist()
+                         for k in ("n_accepted", "n_rejected")}
+        if horizon > 0:
+            st = sw.run_until(st, horizon, {})
+            rec["run_until"] = gaps(record(st), ref["run_until"])
         out.append(rec)
     return {"eps": eps, "seeds": out}
 
 
-def jax_numbers(nx, ny, amps, attempts, horizon):
-    cfg = JaxConfig(nx=nx, ny=ny)
+def jax_numbers(nx, ny, amps, attempts, horizon, config="default"):
+    cfg = jax_config(nx, ny, config)
     model = JaxModel(cfg)
-    states = [JaxModel(dataclasses.replace(cfg, seed_amplitude=a))
+    states = [JaxModel(jax_config(nx, ny, "default", seed_amplitude=a))
               .initial_state() for a in amps]
     sw = JaxSweep(model.system, monitor_idx=1, ttol=cfg.ttol,
                   dt_min=cfg.dt_min, dt_max=cfg.dt_max)
     st = sw.from_states(states)
     out = {"config": {"nx": nx, "ny": ny, "amps": list(map(float, amps)),
                       "attempts": attempts, "horizon": horizon,
+                      "options": config,
                       "dofs": int(st.u.shape[1]),
                       "unknowns_per_member": int(st.u.shape[1]
                                                  * st.u.shape[2])},
            "initial": col_norms(st.u)}
-    params = JaxParams(jnp.asarray(st.t + st.dt), jnp.asarray(st.dt),
-                       jnp.asarray(st.dt_old))
-    _, info = sw._vstep(st.u, st.u, st.u_old1, {}, params)
-    out["first"] = {"converged": np.asarray(info.converged).tolist(),
-                    "newton_iterations": np.asarray(info.iters).tolist()}
+    out["first"] = first_attempt(sw, st)
     out["attempts"] = []
     t0 = time.perf_counter()
     for _ in range(attempts):
         st = sw.attempt(st, {})
         out["attempts"].append(record(st))
-    n0 = st.n_accepted + st.n_rejected
-    st = sw.run_until(st, horizon, {})
-    out["run_until"] = record(st)
-    out["run_until"]["attempts"] = int(
-        (st.n_accepted + st.n_rejected - n0).max())
+    if horizon > 0:
+        n0 = st.n_accepted + st.n_rejected
+        st = sw.run_until(st, horizon, {})
+        out["run_until"] = record(st)
+        out["run_until"]["attempts"] = int(
+            (st.n_accepted + st.n_rejected - n0).max())
     out["jax_cpu_s"] = time.perf_counter() - t0
     return out, states
 
@@ -160,17 +201,18 @@ def shared_scalars():
     return solve
 
 
-def port_numbers(ref, jax_states, nx, ny, amps, attempts, horizon):
+def port_numbers(ref, jax_states, nx, ny, amps, attempts, horizon,
+                 config="default"):
     from unittest import mock
 
     import fedm_tpu_torch.model.system as tsys
     from fedm_tpu_torch.convert import (state_to_arrays,
                                         sweep_state_from_arrays)
     from fedm_tpu_torch.model.system import StepParams
-    from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel
+    from fedm_tpu_torch.models.streamer import StreamerModel
     from fedm_tpu_torch.parallel import BatchedSweep
 
-    cfg = StreamerConfig(nx=nx, ny=ny)
+    cfg = port_config(nx, ny, config)
     model = StreamerModel(cfg, device="cpu")
     sw = BatchedSweep(model.system, monitor_idx=1, ttol=cfg.ttol,
                       dt_min=cfg.dt_min, dt_max=cfg.dt_max)
@@ -178,7 +220,8 @@ def port_numbers(ref, jax_states, nx, ny, amps, attempts, horizon):
                ("u", "u_old", "u_old1", "t", "dt", "dt_old", "max_error",
                 "n_accepted", "n_rejected")} for s in jax_states]
     out = {}
-    own = [StreamerModel(dataclasses.replace(cfg, seed_amplitude=a),
+    own = [StreamerModel(dataclasses.replace(port_config(nx, ny, "default"),
+                                             seed_amplitude=a),
                          device="cpu").initial_state() for a in amps]
     out["own_initial_gap"] = _gap(col_norms(np.stack(
         [state_to_arrays(s)["u"] for s in own])), ref["initial"])
@@ -191,7 +234,8 @@ def port_numbers(ref, jax_states, nx, ny, amps, attempts, horizon):
             for _ in range(attempts):
                 st = sw.attempt(st, {})
                 recs.append(record(st))
-            st = sw.run_until(st, horizon, {})
+            if horizon > 0:
+                st = sw.run_until(st, horizon, {})
             wall = time.perf_counter() - t0
         return st, recs, record(st), wall
 
@@ -216,7 +260,8 @@ def port_numbers(ref, jax_states, nx, ny, amps, attempts, horizon):
     out["first_newton"] = np.asarray(info_b.iters).tolist()
     _, recs, fin, wall = run(contextlib.nullcontext())
     out["attempts"] = [gaps(r, q) for r, q in zip(recs, ref["attempts"])]
-    out["run_until"] = gaps(fin, ref["run_until"])
+    if horizon > 0:
+        out["run_until"] = gaps(fin, ref["run_until"])
     out["port_cpu_s"] = wall
     st = sweep_state_from_arrays(arrays, device="cpu")
     with mock.patch.object(tsys, "newton_krylov_batched", shared_scalars()):
@@ -229,6 +274,7 @@ def port_numbers(ref, jax_states, nx, ny, amps, attempts, horizon):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--port", action="store_true")
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="default")
     ap.add_argument("--nx", type=int, default=80)
     ap.add_argument("--ny", type=int, default=160)
     ap.add_argument("--amps", default=None,
@@ -238,20 +284,22 @@ def main():
     ap.add_argument("--horizon", type=float, default=2e-11)
     ap.add_argument("--spread", type=int, default=0, metavar="SEEDS",
                     help="also the JAX sweep from SEEDS perturbed initial "
-                         "states (1e-15 relative)")
+                         "states (--spread-eps relative)")
+    ap.add_argument("--spread-eps", type=float, default=1e-15)
     args = ap.parse_args()
     amps = (AMPS if args.amps is None
             else np.array([float(a) for a in args.amps.split(",")]))
     ref, states = jax_numbers(args.nx, args.ny, amps, args.attempts,
-                              args.horizon)
+                              args.horizon, args.config)
     print(json.dumps(ref), flush=True)
     if args.spread:
         print(json.dumps({"spread": jax_spread(
             states, args.nx, args.ny, args.attempts, args.horizon, ref,
-            1e-15, args.spread)}), flush=True)
+            args.spread_eps, args.spread, args.config)}), flush=True)
     if args.port:
         print(json.dumps(port_numbers(ref, states, args.nx, args.ny, amps,
-                                      args.attempts, args.horizon)),
+                                      args.attempts, args.horizon,
+                                      args.config)),
               flush=True)
 
 
