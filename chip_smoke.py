@@ -212,6 +212,23 @@ Phases (each reports its elapsed seconds on stderr):
      K1 on each electrode rank's card against its plain version;
      `bagheri_run --preset bagheri14-fullgap --devices R` as a process,
      2 steps, and with one rank more than the cards (it must fail).
+     The Poisson-row solves put on the slabs last: the
+     point-smoothed geometric multigrid (`--precond mg`,
+     `SlabGeometricMG`) and the Chebyshev solve (`SlabChebyshev`). On
+     every run, before the one-rank check: the main path's system with
+     each, one application on a one-rank group bit for bit with one
+     card, and on 4 ranks emulated as threads on the card
+     (`slab_probe.poisson_row`) bit for bit or, where the Chebyshev
+     solve's slab stiffness product is shown to round by the cell count,
+     per column; K1 at the multigrid's coarse level against its plain
+     version. With two cards or more, after job 4 and under a budget of
+     their own: job 1b, job 1 with each solve (V and M against one card
+     and against the ranks emulated on card 0, the controls refused), and
+     job 5: `bagheri_run --preset bagheri14-fullgap --precond mg`
+     through `fedm_tpu_torch.parallel.counted_run`, 3 advances from t =
+     0 on R ranks and then on one card: counts, t and dt, the fields, and
+     the Newton and Krylov counts of each advance inside the port's own
+     spread on one card, K1's launches per rank.
 The glow phase (5) also checks that two V-cycles of one vector, and two
 advances from one state, give the same bits (the unstructured levels
 and the restriction sum through K1's dense form, F3); the options phase
@@ -3685,6 +3702,31 @@ SLAB_PROBE_S = 400
 SLABS_BUDGET_S = 480
 # the operators of job 1 (`rank_checks.ops_record`)
 SLAB_OPS = ("F", "F64", "Jv", "B", "V", "zline", "M")
+# The Poisson-row solves phase 12 also puts on the slabs, by
+# `rank_checks.slab_model`'s spec `poisson`: the point-smoothed geometric
+# multigrid of poisson_precond="mg" and the Chebyshev solve; on one card
+# each on a one-rank group and on SLAB_EMULATED_RANKS ranks emulated as
+# threads (`slab_probe.poisson_row`), on R cards job 1's V and M of each
+SLAB_PRECONDS = ("mg", "chebyshev")
+SLAB_EMULATED_RANKS = 4
+# Job 5: `python -m fedm_tpu_torch.bagheri_run --preset bagheri14-fullgap
+# --precond mg` (546,795 unknowns), the first SLAB_FULLGAP_STEPS advances
+# from t = 0 through `parallel.counted_run` (its Newton and Krylov counts),
+# on R ranks and then on one card, one after the other, after job 4 and
+# job 1b (job 1 with each of SLAB_PRECONDS), the two under a budget of
+# their own: counts equal, t and dt within SLAB_T_RTOL,
+# the fields within the identity rule, Newton and Krylov per advance
+# equal to one card's or inside SLAB_FULLGAP_SPREAD, the port's own spread
+# on one card, widened to one card's counts: (newton, krylov) ranges per
+# advance over 18 perturbed marches (`python -m
+# fedm_tpu_torch.parallel.slab_probe --spread fullgap --advances 3 --eps E
+# --seed S`, E 1e-12 to 3e-7, one NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# section 6) and the unperturbed one (2, 42), (2, 60), (1, 18)
+SLAB_FULLGAP_STEPS = 3
+SLAB_FULLGAP_SPREAD = {0: ((2, 3), (40, 103)), 1: ((2, 3), (59, 191)),
+                       2: ((1, 2), (2, 99))}
+SLAB_FULLGAP_PROCESS_S = 240
+SLAB_FULLGAP_BUDGET_S = 540
 
 
 def slab_specs() -> tuple:
@@ -3728,6 +3770,85 @@ def slabs_one_rank(model, state) -> dict:
     log(f"slabs: one rank against one card: {out}")
     check(all(out["bitwise"].values()), f"the main path on one z-slab "
                                         f"differs from one card: {out}")
+    return out
+
+
+def slab_precond_systems(model) -> dict:
+    """The main path's system (phase 3's model, on one card) with its
+    Poisson row's solve replaced by each of SLAB_PRECONDS, {name: a
+    shallow copy of the system} (the model keeps its own): "mg" the
+    `GeometricMultigrid` a model with poisson_precond="mg" builds on this
+    mesh, "chebyshev" the Chebyshev solve of `enable_elliptic_precond`."""
+    import copy
+    import dataclasses
+
+    proxy = copy.copy(model)
+    proxy.cfg = dataclasses.replace(model.cfg, poisson_precond="mg")
+    out = {}
+    for name in SLAB_PRECONDS:
+        out[name] = copy.copy(model.system)
+        if name == "mg":
+            out[name].enable_elliptic_precond(2, mg=proxy._geometric_mg())
+        else:
+            out[name].enable_elliptic_precond(2)
+    return out
+
+
+def slab_poisson_rhs(system, seed: int) -> torch.Tensor:
+    """The seeded right-hand side `rank_checks.ops_record` gives the
+    Poisson-row solve (spec `seed`): the second draw of its generator."""
+    n = system.n_dofs
+    rng = np.random.default_rng(seed)
+    rng.standard_normal((n, 3))
+    return torch.as_tensor(rng.standard_normal(n),
+                           device=system.bcs.mask.device).to(system.dtype)
+
+
+def slabs_one_rank_precond(model, k1) -> dict:
+    """Phase 12 on one card, the solves of SLAB_PRECONDS on the main
+    path's restart system (`slab_precond_systems`): one application on a
+    one-rank group against the system's own, bit for bit, and on
+    SLAB_EMULATED_RANKS ranks emulated as threads against one card
+    (`slab_probe.poisson_row`: bit for bit, or for the Chebyshev solve,
+    whose slab stiffness product is then shown to round by the cell count,
+    per column by `judge`, which must refuse the bfloat16 control); K1's
+    launches counted from the hierarchy's setup, and K1 at its coarse
+    level's table against its plain version."""
+    from fedm_tpu_torch.ops.ell_scatter import ell_scatter, ell_scatter_ref
+    from fedm_tpu_torch.parallel import ranks, slab_probe
+
+    t = time.perf_counter()
+    k1.LAUNCHES.clear()
+    systems = slab_precond_systems(model)
+    out = {"setup_s": time.perf_counter() - t,
+           "k1_launches": k1_launches(k1)}
+    lev = systems["mg"]._ell[1].__self__.levels[-1]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    flat = torch.randn((lev.batch.dofs.numel(), 1), generator=gen,
+                       device="cuda")
+    got, ref = ell_scatter(flat, lev._ell), ell_scatter_ref(flat, lev._ell)
+    out["k1_coarse_level"] = {
+        "rows": int(lev._ell.shape[0]), "max_val": int(lev._ell.shape[1]),
+        "max_abs_err": float((got - ref).abs().max()),
+        "scale": float(ref.abs().max())}
+    check(out["k1_coarse_level"]["max_abs_err"]
+          <= 1e-5 * out["k1_coarse_level"]["scale"],
+          f"K1 at the multigrid's coarse level: {out['k1_coarse_level']}")
+    for name, system in systems.items():
+        r = slab_poisson_rhs(system, 5)
+        plain = system._ell[1](r)
+        with ranks.one_rank("cuda") as g:
+            one = slab_probe._slab_solve(g, system, r, False)[0]
+        emu = slab_probe.poisson_row(system, r, SLAB_EMULATED_RANKS)
+        out[name] = {"one_rank_bitwise": torch.equal(one, plain),
+                     "emulated": emu}
+        check(out[name]["one_rank_bitwise"],
+              f"slabs: {name} on one z-slab differs from one card")
+        check(emu["ok"] and not emu["bf16_control"]["ok"],
+              f"slabs: {name} on {SLAB_EMULATED_RANKS} emulated ranks: "
+              f"{emu}")
+    out["s"] = time.perf_counter() - t
+    log(f"slabs: mg and the Chebyshev solve, one rank and emulated: {out}")
     return out
 
 
@@ -3826,6 +3947,170 @@ def _slab_ops_vs_one(res, plain, emu, fail) -> dict:
                                    c["float32_as_float64"]))
          and not any(v["ok"] for v in c["bfloat16"].values()),
          f"slabs: a control passes: {c}")
+    return out
+
+
+def slab_precond_specs(ops_spec: dict) -> dict:
+    """Job 1's spec with each of SLAB_PRECONDS as the Poisson-row solve
+    (`rank_checks.slab_model`'s `poisson`), unprofiled."""
+    base = {k: v for k, v in ops_spec.items() if k != "profile_iters"}
+    return {name: {**base, "poisson": name} for name in SLAB_PRECONDS}
+
+
+def _slab_precond_vs_one(name, res, plain, row, emu, fail) -> dict:
+    """Job 1 with the Poisson-row solve `name`: the ranks' V (one
+    application) and M against one card's (`plain`, on another card) and
+    against the same ranks emulated on card 0 (`row`, `slab_probe.
+    poisson_row` of the same system and right-hand side). V equal to the
+    emulation and to one card bit for bit, or, where `row` shows the slab
+    stiffness product to round by the cell count (the Chebyshev solve),
+    held per column (`judge`); M bit for bit, or where job 1's probe
+    (`emu`) shows its difference to be count rounding
+    (`slab_probe.exemptions`, its Poisson row equal or V exempt), held per
+    column. The control (`ops_record`'s `control_V`: the V-cycle whose
+    point smoother drops the halo row from below, the Chebyshev solve
+    with lmax scaled by 1 + 1e-6) must not be one card's V, and where V is
+    held per column the bfloat16 control must fail that hold (the lmax
+    control's hold is recorded). Failures go to `fail(ok, msg)`."""
+    from fedm_tpu_torch.parallel.slab_probe import exemptions, judge
+
+    got = {k: _slab_rows(res, k) for k in ("V", "M")}
+    control = _slab_rows(res, "control_V")
+    v_exempt = bool(row["exempt"])
+    m_row_equal = torch.equal(got["M"][:, 2], plain["M"][:, 2])
+    m_exempt = exemptions({"F": emu["exempt"]["F"], "A": v_exempt},
+                          emu["ops"]["B"]["bitwise"],
+                          emu["M_parts"]["by_rank"], m_row_equal)["M"]
+    out = {"bitwise": {k: torch.equal(got[k], plain[k]) for k in got},
+           "V_emulated_bitwise": torch.equal(got["V"],
+                                             row["_ranks"].cpu()),
+           "V_one_card_cards_bitwise": torch.equal(plain["V"],
+                                                   row["_one"].cpu()),
+           "exempt": {"V": v_exempt, "M": m_exempt},
+           "held": {k: judge(got[k], plain[k]) for k in got},
+           "M_poisson_row_equal": m_row_equal,
+           "emulated": {k: v for k, v in row.items()
+                        if not k.startswith("_")},
+           "control": {"bitwise": torch.equal(control, plain["V"]),
+                       "held": judge(control, plain["V"]),
+                       "bf16_held": judge(plain["V"].to(torch.bfloat16),
+                                          plain["V"])}}
+    log(f"slabs: {name} on {len(res)} ranks: {out}")
+    fail(out["V_emulated_bitwise"] and out["V_one_card_cards_bitwise"],
+         f"slabs: {name}: V differs from the ranks emulated on one card, "
+         f"or one card's from another's: {out}")
+    for k, exempt in (("V", v_exempt), ("M", m_exempt)):
+        fail(out["bitwise"][k] or (exempt and out["held"][k]["ok"]),
+             f"slabs: {name}: {k} on {len(res)} ranks differs from one "
+             f"card's: {out}")
+    c = out["control"]
+    fail(not c["bitwise"] and (out["bitwise"]["V"]
+                               or not c["bf16_held"]["ok"]),
+         f"slabs: {name}: a control passes V's hold: {c}")
+    return out
+
+
+def run_fullgap(n_devices: int, timeout: float) -> dict:
+    """`python -m fedm_tpu_torch.parallel.counted_run COUNTS
+    --preset bagheri14-fullgap --precond mg --devices N --max-steps
+    SLAB_FULLGAP_STEPS` as a process in a session of its own, waited for
+    (at most `timeout` s): rc, wall, rank 0's report, the counts of each
+    advance by rank, the checkpoint's state."""
+    import shutil
+    import tempfile
+
+    from fedm_tpu_torch.io import load_checkpoint
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fullgap_"))
+    cmd = [sys.executable, "-m", "fedm_tpu_torch.parallel.counted_run",
+           str(tmp / "counts.jsonl"), "--preset", "bagheri14-fullgap",
+           "--precond", "mg", "--devices", str(n_devices), "--max-steps",
+           str(SLAB_FULLGAP_STEPS), "--report-every", "1", "--out",
+           str(tmp / "out")]
+    t = time.perf_counter()
+    job = {"proc": None, "tmp": tmp}
+    try:
+        with open(tmp / "stdout", "w") as so, \
+                open(tmp / "stderr", "w") as se:
+            job["proc"] = subprocess.Popen(cmd, stdout=so, stderr=se,
+                                           cwd=ROOT, start_new_session=True)
+        try:
+            job["proc"].wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            pass
+        wall = time.perf_counter() - t
+        text = (tmp / "stdout").read_text()
+        rc = job["proc"].poll()
+        check(rc == 0, f"counted bagheri_run --devices {n_devices} "
+                       f"--precond mg failed (rc {rc}, {wall:.1f} s): "
+                       f"{(tmp / 'stderr').read_text()[-2000:]}")
+        rows = [json.loads(line) for line in
+                (tmp / "counts.jsonl").read_text().splitlines()]
+        st = load_checkpoint(tmp / "out" / "checkpoint.npz", device="cpu")
+        return {"devices": n_devices, "rc": rc, "process_s": wall,
+                "report": [line for line in text.splitlines()
+                           if line.startswith(("device:", "t=",
+                                               "STOPPED"))],
+                "reports": len(re.findall(r"^t=", text, re.M)),
+                "stopped": "STOPPED" in text,
+                "rows": [r for r in rows if r["rank"] == 0],
+                "k1_launches": [sum(r["k1_launches"] for r in rows
+                                    if r["rank"] == q)
+                                for q in range(n_devices)],
+                "n_accepted": st.n_accepted, "t": st.t, "dt": st.dt,
+                "u": st.u}
+    finally:
+        if job["proc"] is not None and job["proc"].poll() is None:
+            os.killpg(job["proc"].pid, signal.SIGKILL)
+            job["proc"].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def slab_fullgap(R: int) -> dict:
+    """Job 5 (after job 4, alone on the cards): the full-gap protocol
+    under --precond mg on R ranks, then on one card (`run_fullgap`), held
+    as SLAB_FULLGAP_STEPS says."""
+    many = run_fullgap(R, SLAB_FULLGAP_PROCESS_S)
+    one = run_fullgap(1, SLAB_FULLGAP_PROCESS_S)
+    rR, r1 = many.pop("rows"), one.pop("rows")
+    uR, u1 = many.pop("u").double(), one.pop("u").double()
+    pairs = [((a["newton"], a["krylov"]), (b["newton"], b["krylov"]))
+             for a, b in zip(rR, r1)]
+    ranges = {}
+    for i, (_, b) in enumerate(pairs):
+        lo_hi = SLAB_FULLGAP_SPREAD.get(i, ((b[0], b[0]), (b[1], b[1])))
+        ranges[i] = tuple((min(lo_hi[q][0], b[q]), max(lo_hi[q][1], b[q]))
+                          for q in (0, 1))
+    keys = ("n_accepted", "n_rejected")
+    out = {"ranks": many, "one_card": one, "counts": rR,
+           "one_card_counts": r1, "newton_krylov": pairs, "spread": ranges,
+           "t_rel": max([abs(a["t"] - b["t"]) / b["t"]
+                         for a, b in zip(rR, r1)] + [0.0]),
+           "dt_rel": max([abs(a["dt"] - b["dt"]) / b["dt"]
+                          for a, b in zip(rR, r1)] + [0.0]),
+           "max_rel_field_dev": float(((uR - u1).abs()
+                                       / (u1.abs() + 1e-12)).max()),
+           "fields_ok": bool(torch.allclose(uR, u1, rtol=SLAB_FIELD_RTOL,
+                                            atol=SLAB_FIELD_ATOL)),
+           "finite": bool(torch.isfinite(uR).all())}
+    log(f"slabs: the full gap under mg on {R} ranks and on one card: {out}")
+    failures = [msg for ok, msg in (
+        (len(rR) == len(r1) == SLAB_FULLGAP_STEPS
+         and all(a[k] == b[k] for a, b in zip(rR, r1) for k in keys),
+         f"counts {[[a[k] for k in keys] for a in rR]} against one card's "
+         f"{[[b[k] for k in keys] for b in r1]}"),
+        (out["t_rel"] <= SLAB_T_RTOL and out["dt_rel"] <= SLAB_T_RTOL,
+         f"t or dt off one card's: {out['t_rel']}, {out['dt_rel']}"),
+        (all(a[q] == b[q] or ranges[i][q][0] <= a[q] <= ranges[i][q][1]
+             for i, (a, b) in enumerate(pairs) for q in (0, 1)),
+         f"Newton and Krylov counts {pairs} (ranks, one card) outside the "
+         f"port's spread {ranges}"),
+        (out["fields_ok"] and out["finite"],
+         f"the fields leave one card's: {out['max_rel_field_dev']}"),
+        (all(m["stopped"] and m["reports"] >= SLAB_FULLGAP_STEPS
+             and m["n_accepted"] == SLAB_FULLGAP_STEPS
+             for m in (many, one)), "the runs' reports")) if not ok]
+    check(not failures, f"slabs: the full gap under mg: {failures}")
     return out
 
 
@@ -3999,7 +4284,9 @@ def slabs(k1, count: int) -> dict:
     (job 3) by the identity rule with the counts in the port's spread,
     `bagheri_run --devices R` as a process (job 4, beside the launch);
     K1 on each electrode rank's card against its plain version; the
-    window on one slab of a one-rank group bit for bit with one card."""
+    window on one slab of a one-rank group bit for bit with one card;
+    then, alone on the cards, job 1b (`slab_preconds`) and job 5
+    (`slab_fullgap`)."""
     from fedm_tpu_torch.parallel import rank_checks, ranks
 
     R = min(count, 4)
@@ -4097,6 +4384,56 @@ def slabs(k1, count: int) -> dict:
     out["process"] = slab_process(job4, R, fail)
     check(not failures, f"slabs: {len(failures)} checks failed: "
                         f"{failures}")
+    # jobs 1b and 5, alone on the cards (beside the launch, job 4 came
+    # near its limit), under a budget of their own
+    budget(SLAB_FULLGAP_BUDGET_S)
+    out["precond"] = slab_preconds(R, ops_spec, emu)
+    t = time.perf_counter()
+    out["fullgap"] = slab_fullgap(R)
+    out["fullgap_s"] = time.perf_counter() - t
+    return out
+
+
+def slab_preconds(R: int, ops_spec: dict, emu: dict) -> dict:
+    """Job 1b: job 1 with each of SLAB_PRECONDS as the Poisson-row solve
+    (`slab_precond_specs`) on R ranks, one per card, and on one card (a
+    rank's card alone, in the same launch, after the slab jobs), held by
+    `_slab_precond_vs_one` against one card and against the same ranks
+    emulated on card 0 (the restart's system built there once the launch
+    is done); job 1's probe (`emu`) for M's count rounding."""
+    from fedm_tpu_torch.parallel import rank_checks, ranks, slab_probe
+
+    specs = slab_precond_specs(ops_spec)
+    refs = [(f"plain_{k}", "slab_ops", v) for k, v in specs.items()]
+    jobs = ([(k, "slab_ops", v) for k, v in specs.items()]
+            + [(key, "on_one_rank", {"rank": (i + 1) % R, "worker": name,
+                                     "spec": spec})
+               for i, (key, name, spec) in enumerate(refs)])
+    t = time.perf_counter()
+    res = ranks.launch(rank_checks.several, R, "cuda", (jobs,),
+                       timeout=SLAB_LAUNCH_S)
+    out = {"launch_s": time.perf_counter() - t}
+    one = {key: next(r[key] for r in res if r[key] is not None)
+           for key, _, _ in refs}
+    systems = slab_precond_systems(rank_checks.slab_model(
+        ops_spec, torch.device("cuda")))
+    failures = []
+
+    def fail(ok, msg):
+        if not ok:
+            log(f"slabs: FAILED CHECK: {msg}")
+            failures.append(msg)
+
+    for name, system in systems.items():
+        row = slab_probe.poisson_row(
+            system, slab_poisson_rhs(system, ops_spec.get("seed", 0)), R,
+            keep=True)
+        out[name] = _slab_precond_vs_one(name, [r[name] for r in res],
+                                         one[f"plain_{name}"], row, emu,
+                                         fail)
+    out["s"] = time.perf_counter() - t
+    check(not failures, f"slabs: mg and the Chebyshev solve: "
+                        f"{len(failures)} checks failed: {failures}")
     return out
 
 
@@ -4110,10 +4447,13 @@ def _cards_launches(out: dict) -> dict:
 
 
 def _slab_launches(out: dict) -> dict:
-    """K1's launches in phase 12, per rank: the restart's advances and the
-    window's move and advances."""
+    """K1's launches in phase 12, per rank: the restart's advances, the
+    window's move and advances, and the full gap's advances under mg (job
+    5, on the R ranks and on one card)."""
     return {"restart": out["restart"]["k1_launches"],
-            "window": out["window"]["k1_launches"]}
+            "window": out["window"]["k1_launches"],
+            "fullgap_mg": out["fullgap"]["ranks"]["k1_launches"],
+            "fullgap_mg_one_card": out["fullgap"]["one_card"]["k1_launches"]}
 
 
 def window_lane(k1, card) -> int:
@@ -4397,8 +4737,10 @@ def main() -> int:
     unknowns = n_dofs * model.n_eq
 
     # the main path's system on one z-slab (the one-card part of phase 12;
-    # the model is done with: use_gspmd leaves it on the slab)
+    # the model is done with: use_gspmd leaves it on the slab), after the
+    # solves this slice adds, on copies of it
     phase("12 slabs")
+    slabs_precond = slabs_one_rank_precond(model, k1)
     slabs_one = slabs_one_rank(model, state)
 
     # Phases 4 and 4b (the fresh window and its rescue) run in a process of
@@ -4486,6 +4828,7 @@ def main() -> int:
                      + sum(sum(o["launches"].values())
                            for o in sweep_options_out.values())
                      + dd_out["k1_launches"]
+                     + sum(slabs_precond["k1_launches"].values())
                      + (0 if slabs_out is None else sum(
                          sum(v) for v in
                          _slab_launches(slabs_out).values()))),
@@ -4504,6 +4847,7 @@ def main() -> int:
                              "dd_scale": dd_out["k1_launches"],
                              "cards": (None if cards_out is None
                                        else _cards_launches(cards_out)),
+                             "slabs_precond": slabs_precond["k1_launches"],
                              "slabs": (None if slabs_out is None
                                        else _slab_launches(slabs_out))},
         "sweep_launches_by_shape": sweep_out["launches_by_shape"],
@@ -4512,9 +4856,11 @@ def main() -> int:
         "extended_launches_by_shape":
             ext_out["distributed_step"]["launches_by_shape"],
         "glow_launches_by_shape": glow_out["launches_by_shape"],
-        "max_abs_err": max(c["max_abs_err"] for c in
-                           cases + compact + glow_cases + tof_cases
-                           + ext_cases + sweep_cases),
+        "max_abs_err": max([c["max_abs_err"] for c in
+                            cases + compact + glow_cases + tof_cases
+                            + ext_cases + sweep_cases]
+                           + [slabs_precond["k1_coarse_level"]
+                              ["max_abs_err"]]),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
         "library_ms": main_case["library_ms"],
@@ -4541,7 +4887,8 @@ def main() -> int:
         "streamer_example": example_out, "post_processing": series_out,
         "dd_scale": dd_out,
         "cards": cards_out, "slabs": {"one_rank": slabs_one,
-                                      "cards": slabs_out}}))
+                                      "precond": slabs_precond,
+                                      "cards": slabs_out}}, default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -22,9 +22,10 @@ CUDA, gloo ranks with --device cpu), the model and its float64 escalation
 model on z-slabs (`CoupledSystem.use_gspmd`, `parallel.slabs`), as the JAX
 tool shards them over N chips; rank 0 prints the reports and writes the
 checkpoints (the gathered state) and the logs, and a resume reads the
-checkpoint on every rank and keeps each rank's rows. More ranks than cards
-raise; --direct-rescue stays single-card, as in the JAX tool, and --precond
-mg has no z-slab form (NotImplementedError; ROADMAP.md section 1).
+checkpoint on every rank and keeps each rank's rows. Every --precond goes
+onto the slabs with the model (`mg`, the point-smoothed geometric
+multigrid, as `parallel.slabs.SlabGeometricMG`). More ranks than cards
+raise; --direct-rescue stays single-card, as in the JAX tool.
 As in the JAX tool, --f64 runs on the static --full-gap mesh only, not
 with a moving window, and a window moves only under the structured
 --precond mg-zline.
@@ -228,10 +229,17 @@ def window_corr(front: float, span: float, dz: float) -> tuple:
     return (z_lo, z_hi, dz)
 
 
-def build_models(args: argparse.Namespace, corridor: tuple):
+def full_gap_corr(dz: float) -> tuple:
+    """The static full-gap corridor at `dz`: the gap less two uniform
+    10-cell tails."""
+    return (Z_LO_MIN, 1.25e-2 - 10 * dz, dz)
+
+
+def build_models(args: argparse.Namespace, corridor: tuple, group=None):
     """The run's model on the z-corridor `corridor` and, unless
     --no-fallback or --f64, its float64 escalation model on the same mesh;
-    both on --device with the structured assembly."""
+    both on --device with the structured assembly, and with a `group`
+    (`parallel.ranks`) both on its z-slabs (`use_gspmd`)."""
     from .models.streamer import StreamerConfig, StreamerModel
     from .solvers.newton import NewtonConfig
 
@@ -275,6 +283,10 @@ def build_models(args: argparse.Namespace, corridor: tuple):
                                      mesh=model.mesh, device=args.device)
             fallback.system.use_gather_scatter()
     model.system.use_gather_scatter()
+    if group is not None:
+        model.system.use_gspmd(group)
+        if fallback is not None:
+            fallback.system.use_gspmd(group)
     return model, fallback
 
 
@@ -312,10 +324,6 @@ def main(argv=None) -> int:
     print(f"protocol: {json.dumps(protocol)}", flush=True)
     if args.devices == 1:
         return run(None, args, protocol)
-    if args.precond == "mg":
-        raise NotImplementedError(
-            "--precond mg (the unstructured multigrid) has no z-slab form: "
-            "--devices > 1 takes mg-zline or zline (ROADMAP.md section 1)")
     from .parallel import ranks
 
     ranks.ranked(run, args.devices, args.device, (args, protocol))
@@ -346,9 +354,7 @@ def run(group, args: argparse.Namespace, protocol: dict) -> int:
     ckpt = args.out / "checkpoint.npz"
     src_corridor = None
     if window:
-        # full gap: the fine corridor spans the gap less two uniform
-        # 10-cell tails
-        fg_corr = (Z_LO_MIN, 1.25e-2 - 10 * args.window_dz, args.window_dz)
+        fg_corr = full_gap_corr(args.window_dz)
         corridor = (fg_corr if args.full_gap
                     else window_corr(1e-2, span, args.window_dz))
         if args.resume and ckpt.exists():
@@ -368,11 +374,7 @@ def run(group, args: argparse.Namespace, protocol: dict) -> int:
                 corridor = (corridor[0], corridor[1], args.window_dz)
     else:
         corridor = (0.0, 1.08e-2, args.dz)
-    model, fallback = build_models(args, corridor)
-    if group is not None:
-        model.system.use_gspmd(group)
-        if fallback is not None:
-            fallback.system.use_gspmd(group)
+    model, fallback = build_models(args, corridor, group)
     n_dofs = model.space.n_dofs
     dev = model.device
     say(f"device: {dev}"
@@ -380,7 +382,8 @@ def run(group, args: argparse.Namespace, protocol: dict) -> int:
            else "")
         + ("" if group is None else
            f", {group.size} ranks on z-slabs, node rows "
-           f"{model.system.slabs.layout.counts()}"))
+           f"{model.system.slabs.layout.counts()}, Poisson row "
+           f"{type(model.system._ell[1].__self__).__name__}"))
     corr = model.cfg.z_corridor
     say(f"mesh: {n_dofs} dofs ({3 * n_dofs} unknowns), "
         f"z_corridor=({corr[0]:.4e},{corr[1]:.4e},dz={corr[2]:g})"

@@ -472,15 +472,22 @@ class CoupledSystem:
         system then takes and returns is this rank's node rows
         (`place_state`; `gather_state` gives the whole grid back), every
         reduction of a step runs over the group, and the Poisson row's
-        preconditioner moves to the slabs: the structured V-cycle
-        (`SlabPoissonMG`, the slabs aligned to its levels) or the z-line
-        smoother (`SlabLineSolver`). Raises ValueError without structured
-        assembly, as the JAX package does, and NotImplementedError for a
-        Poisson-row preconditioner that has no slab form (the unstructured
-        multigrid, the Chebyshev solve: ROADMAP.md, section 1)."""
-        from ..parallel.slabs import (SlabLineSolver, SlabPoissonMG, Slabs,
+        preconditioner moves to the slabs, whichever the JAX package's
+        `use_gspmd` takes: the structured V-cycle (`SlabPoissonMG`) or the
+        geometric multigrid, point- or z-line-smoothed
+        (`SlabGeometricMG`), the slabs aligned to the hierarchy's levels;
+        the z-line smoother (`SlabLineSolver`); the Chebyshev solve
+        (`SlabChebyshev`). Raises ValueError without structured assembly,
+        as the JAX package does, for a hierarchy that is not a stencil on
+        every level with separable transfers (a structured grid's always
+        is), and for a preconditioner of none of these kinds (the slabs
+        would not know its rows)."""
+        from ..parallel.slabs import (SlabChebyshev, SlabGeometricMG,
+                                      SlabLineSolver, SlabPoissonMG, Slabs,
                                       grid_shape)
+        from ..solvers.chebyshev import ChebyshevSolve
         from ..solvers.linesmoother import ZLineSmoother
+        from ..solvers.multigrid import GeometricMultigrid
         from ..solvers.structured_mg import StructuredPoissonMG
 
         shape = grid_shape(self.cell_batch)
@@ -493,25 +500,30 @@ class CoupledSystem:
                              "a system that is not")
         owner = (None if self._ell is None
                  else getattr(self._ell[1], "__self__", None))
-        if self._ell is not None and not isinstance(
-                owner, (StructuredPoissonMG, ZLineSmoother)):
-            raise NotImplementedError(
-                f"the Poisson-row preconditioner {self._ell[1]!r} has no "
-                f"z-slab form (only the structured V-cycle 'mg-zline' and "
-                f"the z-line smoother 'zline' do): see ROADMAP.md, "
-                f"section 1")
-        levels = (owner.n_levels if isinstance(owner, StructuredPoissonMG)
-                  else 1)
-        self.slabs = Slabs(group, *shape, levels)
+        slab_form = {StructuredPoissonMG: SlabPoissonMG,
+                     GeometricMultigrid: SlabGeometricMG,
+                     ChebyshevSolve: SlabChebyshev,
+                     ZLineSmoother: SlabLineSolver}.get(type(owner))
+        if self._ell is not None and slab_form is None:
+            raise ValueError(f"the Poisson-row preconditioner "
+                             f"{self._ell[1]!r} is none of the "
+                             f"multigrids, the z-line smoother or the "
+                             f"Chebyshev solve, whose rows the slabs know")
+        multigrid = isinstance(owner, (StructuredPoissonMG,
+                                       GeometricMultigrid))
+        slabs = Slabs(group, *shape, owner.n_levels if multigrid else 1)
+        if multigrid:
+            solve = slab_form(owner, slabs).precond  # may refuse: before
+        self.slabs = slabs                          # the system changes
         self.group = group
         self._slice_batches()
-        if isinstance(owner, StructuredPoissonMG):
-            self._ell = (self._ell[0], SlabPoissonMG(owner,
-                                                     self.slabs).precond)
-        elif owner is not None:
-            eq = self._ell[0]
-            self._ell = (eq, SlabLineSolver(
-                owner, self.slabs, self.masked_stiffness_op(eq)).solve)
+        if self._ell is None:
+            return
+        eq = self._ell[0]
+        if not multigrid:
+            solve = slab_form(owner, slabs,
+                              self.masked_stiffness_op(eq)).solve
+        self._ell = (eq, solve)
 
     def _slice_batches(self) -> None:
         from ..parallel.slabs import slab_batches
@@ -565,7 +577,7 @@ class CoupledSystem:
         polynomial of the given degree in the Jacobi-scaled operator. The
         multigrid and the Chebyshev solve take r [n_dofs] or [n_dofs, B],
         B independent right-hand sides (`BatchedSystem`)."""
-        from ..solvers.chebyshev import chebyshev_solver, power_iteration_lmax
+        from ..solvers.chebyshev import ChebyshevSolve
         from ..solvers.elliptic import stiffness_diagonal
 
         if solver is not None:
@@ -577,18 +589,9 @@ class CoupledSystem:
         mask = self.bcs.mask[:, eq]
         diag = stiffness_diagonal(self.cell_batch)
         dtilde = torch.where(mask | (diag == 0), 1.0, diag)
-        A = self.masked_stiffness_op(eq)
-
-        def dt_like(x):
-            return dtilde.reshape(dtilde.shape + (1,) * (x.dim() - 1))
-
-        def At(x):
-            return A(x) / dt_like(x)
-
-        lmax = power_iteration_lmax(At, self.n_dofs, iters=power_iters,
-                                    device=mask.device)
-        cheb = chebyshev_solver(At, lmax / ratio, 1.05 * lmax, degree)
-        self._ell = (eq, lambda r: cheb(r / dt_like(r)))
+        cheb = ChebyshevSolve.build(self.masked_stiffness_op(eq), dtilde,
+                                    degree, ratio, power_iters)
+        self._ell = (eq, cheb.solve)
 
     def masked_stiffness_op(self, eq: int) -> Callable:
         """The masked Laplacian of component `eq` on [n_dofs] vectors

@@ -30,6 +30,7 @@ test module nor JAX.
     on_one_rank(group, spec) another worker on one rank's card, without
                              the group (a one-card reference)
     slab_units(group, spec)  the slab pieces of a seeded grid
+    bagheri_models(group, spec)  the entry point's models on z-slabs
 """
 
 from __future__ import annotations
@@ -335,27 +336,66 @@ def slab_model(spec: dict, device):
     """A structured streamer model (spec: `bagheri_argv`, the arguments of
     `bagheri_run` whose model to build, or `cfg` and `newton`, the
     StreamerConfig's and NewtonConfig's keywords, and `float32`), with the
-    structured assembly engaged."""
+    structured assembly engaged, and the Poisson-row preconditioner of
+    spec `poisson` (`_poisson`)."""
     from ..models.streamer import StreamerConfig, StreamerModel
     from ..solvers.newton import NewtonConfig
 
     if "bagheri_argv" in spec:
         from .. import bagheri_run
 
-        args = bagheri_run.parse_args([*spec["bagheri_argv"], "--out", "-",
-                                       "--device", str(device)])
+        mg = ["--precond", "mg"] if spec.get("poisson") == "mg" else []
+        args = bagheri_run.parse_args([*spec["bagheri_argv"], *mg, "--out",
+                                       "-", "--device", str(device)])
         corr = (spec["corridor"] if "corridor" in spec else
                 bagheri_run.window_corr(1e-2, args.window_span,
                                         args.window_dz))
-        return bagheri_run.build_models(args, tuple(corr))[0]
+        return _poisson(spec, bagheri_run.build_models(args,
+                                                       tuple(corr))[0])
     kw = dict(spec.get("cfg", {}))
+    if spec.get("poisson") == "mg":
+        kw["poisson_precond"] = "mg"
     if "newton" in spec:
         kw["newton"] = NewtonConfig(**spec["newton"])
     if spec.get("float32"):
         kw["dtype"] = torch.float32
     m = StreamerModel(StreamerConfig(**kw), device=device)
     m.system.use_gather_scatter()
+    return _poisson(spec, m)
+
+
+def _poisson(spec: dict, m):
+    """`m` with spec `poisson`'s Poisson-row preconditioner installed:
+    "mg" the point-smoothed `GeometricMultigrid` (the model was built with
+    poisson_precond="mg"), "chebyshev" the Chebyshev solve
+    (`enable_elliptic_precond(2)`, as the JAX package installs it),
+    "geometric" the model's `GeometricMultigrid` (z-line smoothed under
+    "mg-zline") in place of the structured V-cycle; else the model's
+    own."""
+    kind = spec.get("poisson")
+    if kind == "chebyshev":
+        m.system.enable_elliptic_precond(2)
+    elif kind == "geometric":
+        m.system.enable_elliptic_precond(2, mg=m._geometric_mg())
+    elif kind not in (None, "mg"):
+        raise ValueError(f"poisson {kind!r}")
     return m
+
+
+def bagheri_models(group, spec: dict) -> dict:
+    """`bagheri_run.build_models` on this rank's z-slabs (spec:
+    `bagheri_argv`, with the corridor of a run without --window-dz): each
+    model's slab Poisson-row solve and this rank's node rows."""
+    from .. import bagheri_run
+
+    args = bagheri_run.parse_args([*spec["bagheri_argv"], "--out", "-",
+                                   "--device", str(group.device)])
+    models = [m for m in bagheri_run.build_models(
+        args, (0.0, 1.08e-2, args.dz), group) if m is not None]
+    return {"rank": group.rank, "rows": models[0].system.slabs.layout.rows(
+                group.rank),
+            "solves": [type(m.system._ell[1].__self__).__name__
+                       for m in models]}
 
 
 def _slab_state(spec: dict, m, device):
@@ -394,6 +434,34 @@ def _dropping_below(slabs):
     return run
 
 
+def _poisson_control(solver):
+    """The control of a slab Poisson-row solve `solver`, or None: for
+    `SlabGeometricMG` the V-cycle whose point smoother drops the halo row
+    from below, for `SlabChebyshev` the solve with lmax scaled by
+    (1 + 1e-6)."""
+    from ..solvers.chebyshev import ChebyshevSolve
+    from .slabs import SlabChebyshev, SlabGeometricMG
+
+    if isinstance(solver, SlabChebyshev):
+        return ChebyshevSolve(solver.A, solver.dtilde,
+                              solver.lmax * (1 + 1e-6), solver.degree,
+                              solver.ratio).solve
+    if not isinstance(solver, SlabGeometricMG):
+        return None
+    smooth = solver._smooth
+
+    def smooth_without_below(k, R):
+        with mock.patch.object(solver.slabs, "halo",
+                               _dropping_below(solver.slabs)):
+            return smooth(k, R)
+
+    def run(r):
+        with mock.patch.object(solver, "_smooth", smooth_without_below):
+            return solver.precond(r)
+
+    return run
+
+
 def slab_ops(group, spec: dict) -> dict:
     """`ops_record` of a structured model (`slab_model`) at a state
     (`_slab_state`, on one card), on this rank's z-slab (on one card
@@ -414,8 +482,10 @@ def ops_record(m, st, group, spec: dict, smoother=None) -> dict:
     preconditioner, of seeded vectors (spec `seed`); with a group also
     the residual without the halo row from below (`control_F`) and, on a
     card whose rank holds electrode facets, K1 at its facet table against
-    its plain version. This rank's rows, on the host. `smoother`: that
-    `ZLineSmoother`, built already (on the whole grid, as here)."""
+    its plain version, and the control of the slab Poisson-row solve
+    (`control_V`, `_poisson_control`). This rank's rows, on the host.
+    `smoother`: that `ZLineSmoother`, built already (on the whole grid,
+    as here)."""
     from unittest import mock as _mock
 
     from ..model.system import StepParams
@@ -456,6 +526,7 @@ def ops_record(m, st, group, spec: dict, smoother=None) -> dict:
            "V": sysm._ell[1](r).cpu(),
            "zline": zline(r).cpu(),
            "M": sysm.block_precond_builder(ops)(delta)(r3).cpu(),
+           "poisson_solve": type(sysm._ell[1].__self__).__name__,
            "grads_shape": tuple(ops.batches[0][0].grads.shape),
            "facet_rows": [int(b.dofs.shape[0]) for b, _ in ops.batches[1:]]}
     if spec.get("profile_iters"):
@@ -466,6 +537,9 @@ def ops_record(m, st, group, spec: dict, smoother=None) -> dict:
                                 _dropping_below(sysm.slabs)):
             out["control_F"] = sysm.operators(
                 u, u_old, p).residual(delta).cpu()
+        control_V = _poisson_control(sysm._ell[1].__self__)
+        if control_V is not None:
+            out["control_V"] = control_V(r).cpu()
         if dev.type == "cuda" and len(sysm.slab_batches) > 1:
             out["k1"] = _k1_facets(sysm.slab_batches[1][0], dev)
     return out

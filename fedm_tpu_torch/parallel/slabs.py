@@ -37,7 +37,11 @@ the separable transfers with one halo row, the z-line (PCR) smoothing on
 the whole grid after one all-gather of the level's right-hand side (a line
 crosses every slab), the dense coarse solve on the gathered coarsest grid;
 each rank keeps its own rows. Every operation moves values only, so one
-V-cycle equals one card's bit for bit.
+V-cycle equals one card's bit for bit. `SlabGeometricMG` is the geometric
+multigrid's V-cycle on the same pieces, its point Chebyshev smoother on
+own rows with one halo row per matvec; `SlabChebyshev` the Chebyshev
+Poisson-row solve on own rows through the slab stiffness product;
+`SlabLineSolver` the z-line smoother's solve.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from ..fem.interpolation import prolong_axis, restrict_axis
+from ..solvers.chebyshev import ChebyshevSolve, chebyshev_solver
 from ..solvers.linesmoother import tridiag_solve_pcr
 from ..solvers.stencil import stencil_matvec
 
@@ -243,18 +248,19 @@ def slab_batches(slabs: Slabs, batches) -> list:
     return out
 
 
-class SlabPoissonMG:
-    """`StructuredPoissonMG`'s V-cycle on this rank's slab of every level
-    (module docstring). Reads the whole-grid hierarchy `mg` (stencils,
-    transfer weights, coarse inverse: built on every rank as on one card,
-    and updated in place by the moving window) at each call."""
+class _SlabVCycle:
+    """What the z-slab V-cycles share, on this rank's rows of every level
+    of a whole-grid hierarchy `mg` (its `wx`, `wz` and `cinv` read at each
+    call) in grid layout [n_i, rows]: a level's own columns, the
+    separable transfers with one halo row along z, the coarse-grid
+    correction and the dense coarse solve on the gathered coarsest grid.
+    A subclass sets `mg`, `slabs`, `shapes` (each level's (n_i, n_j)) and
+    gives `_mask(k)` and `_vcycle`."""
 
-    def __init__(self, mg, slabs: Slabs):
-        if (mg.n_levels != slabs.layout.levels
-                or mg._shapes[0] != (slabs.n_i, slabs.n_j)):
+    def _check_aligned(self, n_levels: int, shape0: tuple) -> None:
+        if (n_levels != self.slabs.layout.levels
+                or tuple(shape0) != (self.slabs.n_i, self.slabs.n_j)):
             raise ValueError("the slabs are not aligned to this hierarchy")
-        self.mg, self.slabs = mg, slabs
-        self.dtype = mg.dtype
 
     def _cols(self, k: int, T: torch.Tensor) -> torch.Tensor:
         lo, hi = self.slabs.layout.rows(self.slabs.group.rank, k)
@@ -267,10 +273,12 @@ class SlabPoissonMG:
         return F.pad(Z, (1, 1))[..., lo:hi + 2]
 
     def _smooth_full(self, k: int, R: torch.Tensor) -> torch.Tensor:
-        """One z-line solve on the whole grid of the gathered R."""
+        """One z-line solve on the whole grid of the gathered R, with the
+        stencil's in-line couplings, in their type (R's on return)."""
         S = self.mg.S[k]
+        Rf = self.slabs.gather(R, k, dim=-1)
         return tridiag_solve_pcr(S[1, 0], S[1, 1], S[1, 2],
-                                 self.slabs.gather(R, k, dim=-1))
+                                 Rf.to(S.dtype)).to(R.dtype)
 
     def _restrict_z(self, k: int, r: torch.Tensor) -> torch.Tensor:
         """`restrict_axis` along z of this rank's fine rows (last axis) to
@@ -304,26 +312,48 @@ class SlabPoissonMG:
             return prolong_axis(Uh, w[clo:chi])[..., :-1]
         return prolong_axis(Uh, w[clo:chi - 1])   # the last rank
 
+    def _coarse_correction(self, k: int, res: torch.Tensor) -> torch.Tensor:
+        """The level-k residual's correction from level k+1: restricted,
+        masked, the V-cycle below, prolonged and masked."""
+        wx = self.mg.wx[k]
+        Rc = self._restrict_z(k, restrict_axis(res.T, wx).T)
+        Rc = torch.where(self._mask(k + 1), 0.0, Rc)
+        E = prolong_axis(self._vcycle(k + 1, Rc).T, wx).T
+        return torch.where(self._mask(k), 0.0, self._prolong_z(k, E))
+
+    def _coarse_solve(self, k: int, R: torch.Tensor) -> torch.Tensor:
+        """The dense inverse on the gathered coarsest grid, in the
+        promoted type of it and R; this rank's columns."""
+        n_i, n_j = self.shapes[k]
+        Rf = self.slabs.gather(R, k, dim=-1).T.reshape(-1)
+        cinv = self.mg.cinv
+        dt = torch.promote_types(cinv.dtype, R.dtype)
+        Z = (cinv.to(dt) @ Rf.to(dt)).reshape(n_j, n_i).T
+        return self._cols(k, Z)
+
+
+class SlabPoissonMG(_SlabVCycle):
+    """`StructuredPoissonMG`'s V-cycle on this rank's slab of every level
+    (module docstring). Reads the whole-grid hierarchy `mg` (stencils,
+    transfer weights, coarse inverse: built on every rank as on one card,
+    and updated in place by the moving window) at each call."""
+
+    def __init__(self, mg, slabs: Slabs):
+        self.mg, self.slabs, self.shapes = mg, slabs, mg._shapes
+        self._check_aligned(mg.n_levels, mg._shapes[0])
+        self.dtype = mg.dtype
+
+    def _mask(self, k: int) -> torch.Tensor:
+        return self._cols(k, self.mg._masks[k])
+
     def _vcycle(self, k: int, R: torch.Tensor) -> torch.Tensor:
-        mg, sl = self.mg, self.slabs
-        if k == mg.n_levels - 1:
-            n_i, n_j = mg._shapes[k]
-            Rf = sl.gather(R, k, dim=-1)
-            Z = (mg.cinv @ Rf.T.reshape(-1)).reshape(n_j, n_i).T
-            return self._cols(k, Z)
-        S = mg.S[k]
-        S_own = self._cols(k, S)
+        if k == self.mg.n_levels - 1:
+            return self._coarse_solve(k, R)
+        S_own = self._cols(k, self.mg.S[k])
         Zf = self._smooth_full(k, R)
         res = R - stencil_matvec(S_own, self._with_halo(k, Zf), halo=True)
-        Z = self._cols(k, Zf)
-        Rc = restrict_axis(res.T, mg.wx[k]).T
-        Rc = self._restrict_z(k, Rc)
-        Rc = torch.where(self._cols(k + 1, mg._masks[k + 1]), 0.0, Rc)
-        Ec = self._vcycle(k + 1, Rc)
-        E = prolong_axis(Ec.T, mg.wx[k]).T
-        E = self._prolong_z(k, E)
-        Z = Z + torch.where(self._cols(k, mg._masks[k]), 0.0, E)
-        Zh = sl.halo(Z, dim=-1, zeros=True)
+        Z = self._cols(k, Zf) + self._coarse_correction(k, res)
+        Zh = self.slabs.halo(Z, dim=-1, zeros=True)
         R2 = R - stencil_matvec(S_own, Zh, halo=True)
         return Z + self._cols(k, self._smooth_full(k, R2))
 
@@ -333,6 +363,85 @@ class SlabPoissonMG:
         X = r.reshape(-1, self.slabs.n_i).T
         Z = self._vcycle(0, X.to(self.dtype))
         return Z.T.reshape(-1).to(r.dtype)
+
+
+class SlabGeometricMG(_SlabVCycle):
+    """`GeometricMultigrid`'s V-cycle on this rank's slab of every level,
+    the slabs aligned to the hierarchy as for `SlabPoissonMG`: the point
+    Chebyshev smoother on own rows (the whole-grid hierarchy's degree,
+    ratio and per-level `lmax`, every matvec the level's stencil with one
+    halo row on each side), or on a z-line level the PCR solve of the
+    gathered right-hand side; the separable transfers; the dense coarse
+    solve. Every operation is the whole-grid one's on this rank's values,
+    so one V-cycle equals one card's rows bit for bit. Raises ValueError
+    for a hierarchy with a level that is not a stencil on the canonical
+    node layout or a P1 transfer (a structured grid builds neither)."""
+
+    def __init__(self, mg, slabs: Slabs):
+        if any(w is None for w in mg.wx):
+            raise ValueError("the hierarchy has a level without a stencil "
+                             "on the canonical node layout or a P1 "
+                             "transfer, which the slabs do not split")
+        self.mg, self.slabs, self.shapes = mg, slabs, mg.shapes
+        self._check_aligned(mg.n_levels, self.shapes[0])
+
+        def grid(k, v):
+            n_i, n_j = self.shapes[k]
+            return self._cols(k, v.reshape(n_j, n_i).T)
+
+        self._masks = [grid(k, m) for k, m in enumerate(mg.masks)]
+        self._smoothers = []
+        for k, lmax in enumerate(mg.level_lmax):
+            if lmax is None:
+                self._smoothers.append(
+                    lambda R, k=k: self._cols(k, self._smooth_full(k, R)))
+                continue
+            dt = grid(k, mg.dtilde[k])
+
+            def At(X, k=k, dt=dt):
+                return self._matvec(k, X) / dt
+
+            cheb = chebyshev_solver(At, lmax / mg.smooth_ratio, 1.05 * lmax,
+                                    mg.smooth_degree)
+            self._smoothers.append(lambda R, cheb=cheb, dt=dt: cheb(R / dt))
+
+    def _mask(self, k: int) -> torch.Tensor:
+        return self._masks[k]
+
+    def _matvec(self, k: int, Z: torch.Tensor) -> torch.Tensor:
+        """The level's stencil on this rank's rows of Z (one exchange)."""
+        return stencil_matvec(self._cols(k, self.mg.S[k]),
+                              self.slabs.halo(Z, dim=-1, zeros=True),
+                              halo=True)
+
+    def _smooth(self, k: int, R: torch.Tensor) -> torch.Tensor:
+        return self._smoothers[k](R)
+
+    def _vcycle(self, k: int, R: torch.Tensor) -> torch.Tensor:
+        if k == self.mg.n_levels - 1:
+            return self._coarse_solve(k, R)
+        Z = self._smooth(k, R)
+        Z = Z + self._coarse_correction(k, R - self._matvec(k, Z))
+        return Z + self._smooth(k, R - self._matvec(k, Z))
+
+    def precond(self, r: torch.Tensor) -> torch.Tensor:
+        """One V-cycle approximating A^-1 r; r this rank's rows, flat
+        [n_own] in the `id = j*n_i + i` layout."""
+        Z = self._vcycle(0, r.reshape(-1, self.slabs.n_i).T)
+        return Z.T.reshape(-1)
+
+
+class SlabChebyshev(ChebyshevSolve):
+    """`ChebyshevSolve.solve` on this rank's rows: its own rows of the
+    whole grid's `dtilde`, the slab operator `A` (`masked_stiffness_op` on
+    z-slabs) and the whole grid's `lmax`, degree and ratio (the lmax was
+    estimated on every rank as on one card, at setup), so each rank's
+    answer is one card's rows wherever the slab stiffness is."""
+
+    def __init__(self, cheb: ChebyshevSolve, slabs: Slabs, A):
+        super().__init__(A, slabs.own(cheb.dtilde), cheb.lmax, cheb.degree,
+                         cheb.ratio)
+        self.slabs = slabs
 
 
 class SlabLineSolver:

@@ -57,3 +57,44 @@ def chebyshev_solver(matvec: Callable, lmin: float, lmax: float,
         return z
 
     return solve
+
+
+class ChebyshevSolve:
+    """The Chebyshev Poisson-row solve (`CoupledSystem.
+    enable_elliptic_precond` without `mg` or `solver`): z ~= A^-1 r by a
+    `degree` polynomial in the Jacobi-scaled operator A / dtilde on the
+    spectrum [lmax / ratio, 1.05 lmax]. `A` maps [n] or [n, B] vectors;
+    `dtilde` [n] is the Jacobi diagonal (1 on Dirichlet rows and zero
+    diagonals); `lmax` the power iteration's estimate (`build`). What it
+    holds is read by its z-slab form (`parallel.slabs.SlabChebyshev`)."""
+
+    def __init__(self, A: Callable, dtilde: torch.Tensor, lmax: float,
+                 degree: int, ratio: float):
+        self.A, self.dtilde = A, dtilde
+        self.lmax, self.degree, self.ratio = float(lmax), int(degree), ratio
+        self._cheb = chebyshev_solver(self.At, self.lmax / ratio,
+                                      1.05 * self.lmax, self.degree)
+
+    @classmethod
+    def build(cls, A: Callable, dtilde: torch.Tensor, degree: int,
+              ratio: float, power_iters: int) -> "ChebyshevSolve":
+        """The solve with `lmax` from `power_iteration_lmax` of A / dtilde
+        over all its rows."""
+        def At(x):
+            return A(x) / _like(dtilde, x)
+
+        lmax = power_iteration_lmax(At, dtilde.shape[0], iters=power_iters,
+                                    device=dtilde.device)
+        return cls(A, dtilde, lmax, degree, ratio)
+
+    def At(self, x: torch.Tensor) -> torch.Tensor:
+        """The Jacobi-scaled operator A x / dtilde."""
+        return self.A(x) / _like(self.dtilde, x)
+
+    def solve(self, r: torch.Tensor) -> torch.Tensor:
+        return self._cheb(r / _like(self.dtilde, r))
+
+
+def _like(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """`d` [n] shaped to divide `x` [n, ...]."""
+    return d.reshape(d.shape + (1,) * (x.dim() - 1))

@@ -20,7 +20,7 @@ dimensions as independent right-hand sides (a batched sweep's members).
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -150,11 +150,17 @@ class GeometricMultigrid:
                 st = (idx, w, restrict_table(idx, spaces[k + 1].n_dofs))
             self.transfers.append(st)
 
+        # the smoothers; the point-Chebyshev levels' parameters are kept
+        # (`level_lmax`: None on a line-smoothed level; `lmax`: the point
+        # levels' alone) for the V-cycle's z-slab form
+        self.smooth_degree, self.smooth_ratio = smooth_degree, smooth_ratio
         self.lmax = []
+        self.level_lmax: List[Optional[float]] = []
         self.smoothers = []
         for k, lev in enumerate(self.levels[:-1]):
             lined = (line_grids is not None and k < len(line_grids)
                      and line_grids[k] is not None)
+            self.level_lmax.append(None)
             if lined and isinstance(self.ops[k], StencilOp):
                 self.smoothers.append(self._line_smoother(self.ops[k]))
             elif lined:
@@ -173,6 +179,7 @@ class GeometricMultigrid:
                 cheb = chebyshev_solver(At, lmax / smooth_ratio, 1.05 * lmax,
                                         smooth_degree)
                 self.lmax.append(lmax)
+                self.level_lmax[k] = lmax
                 self.smoothers.append(
                     lambda r, cheb=cheb, lev=lev: cheb(
                         r / _bcast(lev.dtilde, r)))
@@ -186,6 +193,51 @@ class GeometricMultigrid:
         self._coarse_inv = torch.as_tensor(np.linalg.inv(cols),
                                            dtype=coarse.dtilde.dtype,
                                            device=self.device)
+
+    # -- what a V-cycle on z-slabs reads (`parallel.slabs.SlabGeometricMG`)
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.levels)
+
+    @property
+    def shapes(self) -> List[Optional[tuple]]:
+        """Each level's (n_i, n_j) node grid, None where it has none."""
+        return [None if g is None else tuple(g.shape) for g in self._grids]
+
+    @property
+    def S(self) -> List[Optional[torch.Tensor]]:
+        """Each level's 9-point stencil [3, 3, n_i, n_j] (`StencilOp`),
+        None where the level applies the assembled operator."""
+        return [op._S if isinstance(op, StencilOp) else None
+                for op in self.ops]
+
+    @property
+    def wx(self) -> List[Optional[torch.Tensor]]:
+        """The separable transfers' weights along r (None for P1)."""
+        return [tr._wx if isinstance(tr, StructuredTransfer) else None
+                for tr in self.transfers]
+
+    @property
+    def wz(self) -> List[Optional[torch.Tensor]]:
+        """The separable transfers' weights along z (None for P1)."""
+        return [tr._wz if isinstance(tr, StructuredTransfer) else None
+                for tr in self.transfers]
+
+    @property
+    def masks(self) -> List[torch.Tensor]:
+        """Each level's Dirichlet mask [n]."""
+        return [lev.mask for lev in self.levels]
+
+    @property
+    def dtilde(self) -> List[torch.Tensor]:
+        """Each level's Jacobi diagonal [n]."""
+        return [lev.dtilde for lev in self.levels]
+
+    @property
+    def cinv(self) -> torch.Tensor:
+        """The coarsest level's dense inverse."""
+        return self._coarse_inv
 
     @staticmethod
     def _line_smoother(st: StencilOp):
@@ -221,3 +273,19 @@ class GeometricMultigrid:
 
     def precond(self, r: torch.Tensor) -> torch.Tensor:
         return self._vcycle(0, r)
+
+
+def structured_hierarchy(make_space: Callable[[int, int], FunctionSpace],
+                         nx: int, ny: int, levels: int,
+                         min_cells: int = 4) -> List[FunctionSpace]:
+    """Spaces [(nx, ny), (nx/2, ny/2), ...] from a structured generator
+    closure `make_space(nx, ny)`, down to `levels` or until a halving
+    would leave fewer than `min_cells` cells along an axis."""
+    spaces = []
+    for _ in range(levels):
+        spaces.append(make_space(nx, ny))
+        if nx // 2 < min_cells or ny // 2 < min_cells:
+            break
+        nx //= 2
+        ny //= 2
+    return spaces

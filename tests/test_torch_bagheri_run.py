@@ -1,9 +1,10 @@
 """The port's entry point `python -m fedm_tpu_torch.bagheri_run`: its
 presets are the JAX tool's (`tools/bagheri_run.py`); --devices N runs N
-gloo ranks on z-slabs here, rank 0's checkpoint held to the one-process
-run's, and refuses what has no z-slab form (--precond mg, pointing at
-ROADMAP.md; the direct rescue, single-card as in the JAX tool) and more
-ranks than cards; every other option of the JAX tool builds and steps a
+gloo ranks on z-slabs here, under mg-zline and under --precond mg (the
+point-smoothed geometric multigrid, `SlabGeometricMG` on every rank),
+rank 0's checkpoint held to the one-process run's, and refuses the direct
+rescue (single-card, as in the JAX tool) and more ranks than cards;
+every other option of the JAX tool builds and steps a
 small run (the `bagheri14` preset as written, with its
 direct rescue, at full size), and a CPU run on a small moving window
 (float32 with the float64 defect, the bagheri14 solver options) starts
@@ -43,16 +44,6 @@ def test_preset_typo_is_refused(monkeypatch, capsys):
     with pytest.raises(SystemExit):
         bagheri_run.parse_args(["--out", "x"])
     assert "unknown keys: ['windw_span']" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("argv,where", [
-    (["--devices", "2", "--precond", "mg"], "ROADMAP.md section 1"),
-], ids=["devices"])
-def test_options_not_ported_are_refused(argv, where, tmp_path):
-    """--devices > 1 runs, but not with an option that has no z-slab form:
-    it raises before any rank starts, and says where the work is queued."""
-    with pytest.raises(NotImplementedError, match=where):
-        bagheri_run.main(["--out", str(tmp_path), "--device", "cpu", *argv])
 
 
 def test_devices_refuses_the_direct_rescue_and_more_ranks_than_cards(
@@ -217,13 +208,24 @@ def test_devices_on_ranks_matches_one_process(tmp_path, capfd):
     checkpoint (the gathered state) and the logs, held to the one-process
     run's: the same counts and t, the fields at
     tests/parallel/test_gspmd_production.py's rtol 5e-5, atol 1e-7."""
+    _ranks_match_one_process(tmp_path, capfd, "mg-zline", "SlabPoissonMG")
+
+
+def test_devices_mg_on_ranks_matches_one_process(tmp_path, capfd):
+    """The same under --precond mg: the point-smoothed geometric
+    multigrid on the slabs."""
+    _ranks_match_one_process(tmp_path, capfd, "mg", "SlabGeometricMG")
+
+
+def _ranks_match_one_process(tmp_path, capfd, precond, solve):
     argv = [a for a in SMALL_RUN if a != "--diag-guards"] + [
-        "--max-steps", "2"]
+        "--max-steps", "2", "--precond", precond]
     assert bagheri_run.main([*argv, "--out", str(tmp_path / "one")]) == 0
     assert bagheri_run.main([*argv, "--devices", "2", "--out",
                              str(tmp_path / "two")]) == 0
     log = capfd.readouterr().out
-    assert "2 ranks on z-slabs, node rows [16, 17]" in log
+    assert (f"2 ranks on z-slabs, node rows [16, 17], Poisson row {solve}"
+            in log)
     one, meta1 = load_checkpoint(tmp_path / "one" / "checkpoint.npz",
                                  device="cpu", with_meta=True)
     two, meta2 = load_checkpoint(tmp_path / "two" / "checkpoint.npz",
@@ -238,3 +240,55 @@ def test_devices_on_ranks_matches_one_process(tmp_path, capfd):
     assert list(meta2["z_corridor"]) == list(meta1["z_corridor"])
     newton = (tmp_path / "two" / "newton.log").read_text().splitlines()
     assert [line.split()[0] for line in newton] == ["1", "2"]
+
+
+def test_devices_mg_puts_every_rank_on_the_geometric_multigrid():
+    """--precond mg with --devices 2: on each rank the model and its
+    float64 escalation model (a static mesh: the escalation does not
+    follow window moves) take the point-smoothed geometric multigrid on
+    the rank's slab."""
+    from fedm_tpu_torch.parallel import rank_checks, ranks
+
+    spec = {"bagheri_argv": ["--dz", "4e-4", "--nx", "8", "--dr", "4e-4",
+                             "--r1", "2e-3", "--precond", "mg",
+                             "--devices", "2"]}
+    res = ranks.launch(rank_checks.bagheri_models, 2, "cpu", (spec,),
+                       timeout=300)
+    assert [r["rank"] for r in res] == [0, 1]
+    for r in res:
+        assert r["solves"] == ["SlabGeometricMG", "SlabGeometricMG"]
+        assert r["rows"] == [(0, 16), (16, 33)][r["rank"]]
+
+
+def test_counted_run_logs_each_advance_on_every_rank(tmp_path):
+    """`python -m fedm_tpu_torch.parallel.counted_run COUNTS argv`: the
+    entry point as a process on 2 gloo ranks under --precond mg, with one
+    line per advance and rank of counts that agree between the ranks and
+    with the checkpoint; imported, the module changes nothing."""
+    import subprocess
+    import sys
+
+    from fedm_tpu_torch.parallel import counted_run  # noqa: F401
+    from fedm_tpu_torch.solvers import newton
+
+    assert newton.bicgstab.__module__ == "fedm_tpu_torch.solvers.linear"
+    argv = [a for a in SMALL_RUN if a != "--diag-guards"] + [
+        "--max-steps", "2", "--precond", "mg", "--devices", "2"]
+    counts = tmp_path / "counts.jsonl"
+    run = subprocess.run(
+        [sys.executable, "-m", "fedm_tpu_torch.parallel.counted_run",
+         str(counts), *argv, "--out", str(tmp_path / "out")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
+    rows = [json.loads(line) for line in counts.read_text().splitlines()]
+    by_rank = [[r for r in rows if r["rank"] == q] for q in (0, 1)]
+    assert [len(r) for r in by_rank] == [2, 2]
+    keys = ("n_accepted", "n_rejected", "t", "dt", "newton", "krylov")
+    assert ([{k: r[k] for k in keys} for r in by_rank[0]]
+            == [{k: r[k] for k in keys} for r in by_rank[1]])
+    assert all(r["newton"] >= 1 and r["krylov"] >= r["newton"]
+               for r in rows)
+    state = load_checkpoint(tmp_path / "out" / "checkpoint.npz",
+                            device="cpu")
+    assert (state.n_accepted, state.t) == (by_rank[0][-1]["n_accepted"],
+                                           by_rank[0][-1]["t"])

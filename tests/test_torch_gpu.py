@@ -351,6 +351,46 @@ def test_two_card_slab_residual_and_vcycle(cuda):
     assert not held("F64", one["F"].double())["ok"]
 
 
+def test_two_card_slab_mg_and_chebyshev(cuda):
+    """The restart grid (bench.py's configuration from its checkpoint) on
+    z-slabs over 2 ranks, one per card (NCCL), with the Poisson-row solves
+    the slabs took last: the point-smoothed `GeometricMultigrid`
+    (poisson_precond="mg") and the Chebyshev solve. One application of
+    each (V) and the whole preconditioner (M) equal the same 2 ranks
+    emulated as threads on one card (`slab_probe.probe`) bit for bit, and
+    one card's bit for bit or, where the probe shows the difference to be
+    count rounding alone, per column by `judge`, which refuses each one's
+    bfloat16 rounding. The V-cycle is never exempt; each solve's control
+    (the smoother without its halo row from below, lmax x (1 + 1e-6))
+    differs from one card's V."""
+    _two_cards()
+    from fedm_tpu_torch.parallel import rank_checks, ranks
+    from fedm_tpu_torch.parallel.slab_probe import case, judge, probe
+
+    base = {**case("restart")[0], "seed": 3}
+    specs = {name: {**base, "poisson": name}
+             for name in ("mg", "chebyshev")}
+    res = ranks.launch(rank_checks.several, 2, "cuda", (
+        [(name, "slab_ops", s) for name, s in specs.items()],),
+        timeout=300)
+    solvers = {"mg": "SlabGeometricMG", "chebyshev": "SlabChebyshev"}
+    for name, s in specs.items():
+        assert [o[name]["poisson_solve"] for o in res] == [solvers[name]] * 2
+        emu = probe(s, 2, cuda, keep=True)
+        one = emu["_one"]
+        for k in ("V", "M"):
+            got = torch.cat([o[name][k] for o in res])
+            assert torch.equal(got, torch.cat([o[k] for o in
+                                               emu["_ranks"]])), (name, k)
+            assert torch.equal(got, one[k]) or (
+                emu["exempt"][k] and judge(got, one[k])["ok"]), (
+                name, k, emu["exempt"], judge(got, one[k]))
+            assert not judge(one[k].to(torch.bfloat16), one[k])["ok"]
+        assert name != "mg" or emu["exempt"]["V"] is False
+        control = torch.cat([o[name]["control_V"] for o in res])
+        assert not torch.equal(control, one["V"]), name
+
+
 def _window_model(device):
     cfg = StreamerConfig(z_corridor=(8.5e-3, 1e-2, 5e-5),
                          r_corridor=(2e-3, 2e-4), z_tail_cells=(12, 12),

@@ -16,6 +16,16 @@ ranks (default 2; `CoupledSystem.use_gspmd` over `parallel.ranks`) and
 prints a second JSON line with the port's numbers and their gaps to the
 JAX package's.
 
+With --precond mg, or --cheb, it prints instead the numbers of the same
+miniature with that Poisson-row solve (--precond mg: the point-smoothed
+`GeometricMultigrid` the model builds for poisson_precond="mg"; --cheb:
+the Chebyshev solve of `enable_elliptic_precond(2)`, installed before
+`use_gspmd`), under `use_gspmd` on the N devices: the initial state's
+column 2-norms, one step from it at STEP (t, dt, dt_old) = (5e-12, 5e-12,
+1e30) (converged, Newton iterations, column 2-norms) and one advance (as
+above); with --port also the port's, on R gloo ranks, and their gaps.
+No window moves (the JAX package refuses a move under either).
+
 With --shard it prints instead the round-1 route's numbers
 (`CoupledSystem.shard` over the N devices) at
 `tests/parallel/test_sharding.py`'s size (StreamerConfig(nx=12, ny=16),
@@ -25,7 +35,12 @@ one step at (t, dt, dt_old) = (5e-12, 5e-12, 1e30): converged, Newton
 iterations and the state's column 2-norms.
 
     JAX_PLATFORMS=cpu python tools/port_reference_gspmd.py [--devices 8]
-        [--port] [--ranks 2] [--shard]
+        [--port] [--ranks 2] [--shard | --precond mg | --cheb]
+
+The full-gap protocol (`bagheri_run --preset bagheri14-fullgap --precond
+mg`, 546,795 unknowns) is not run here: a full-size configuration is for
+the card, and `chip_smoke.py` holds its ranks to the port's own one-card
+run of it.
 """
 
 import argparse
@@ -91,6 +106,78 @@ def jax_protocol(n_devices: int) -> list:
     st = driver.advance(st, {})
     out.append(record(st, st.u))
     return out
+
+
+STEP = (5e-12, 5e-12, 1e30)
+
+
+def jax_precond(n_devices: int, precond: str) -> dict:
+    """The miniature under `use_gspmd` with the Poisson-row solve
+    `precond` ("mg" or "cheb"): initial state, one step, one advance."""
+    import fedm_tpu  # noqa: F401
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from fedm_tpu.model.system import StepParams
+    from fedm_tpu.models.streamer import StreamerConfig, StreamerModel
+    from fedm_tpu.solvers.newton import NewtonConfig
+
+    cfg = StreamerConfig(newton=NewtonConfig(**NEWTON), dtype=jnp.float32,
+                         **precond_config(precond))
+    m = StreamerModel(cfg)
+    m.system.use_gather_scatter()
+    if precond == "cheb":
+        m.system.enable_elliptic_precond(2)
+    m.system.use_gspmd(Mesh(np.array(jax.devices()[:n_devices]),
+                            ("space",)))
+    st = m.initial_state()
+    for f in ("u", "u_old", "u_old1"):
+        setattr(st, f, m.system.place_state(getattr(st, f)))
+    u1, info = m.system.step(st.u, st.u, st.u, {},
+                             StepParams(*(jnp.asarray(x) for x in STEP)))
+    st = m.make_driver().advance(st, {})
+    return precond_record(st.u_old, (info.converged, info.iters, u1), st)
+
+
+def precond_config(precond: str) -> dict:
+    """CONFIG with --precond mg's or --cheb's Poisson-row option ("cheb":
+    the model's own mg-zline, replaced after the build)."""
+    return {**CONFIG, "poisson_precond": "mg" if precond == "mg"
+            else CONFIG["poisson_precond"]}
+
+
+def precond_record(u0, step, st) -> dict:
+    converged, iters, u1 = step
+    return {"initial": record(st, u0)["col_norms"],
+            "step": {"converged": bool(converged), "iters": int(iters),
+                     "col_norms": record(st, u1)["col_norms"]},
+            "advance": record(st, st.u)}
+
+
+def port_precond(group, precond: str) -> dict:
+    """`jax_precond` through the port on this rank's slab of `group`."""
+    import torch
+
+    from fedm_tpu_torch.model.system import StepParams
+    from fedm_tpu_torch.models.streamer import StreamerConfig, StreamerModel
+    from fedm_tpu_torch.solvers.newton import NewtonConfig
+
+    cfg = StreamerConfig(newton=NewtonConfig(**NEWTON), dtype=torch.float32,
+                         **precond_config(precond))
+    m = StreamerModel(cfg, device="cpu")
+    m.system.use_gather_scatter()
+    if precond == "cheb":
+        m.system.enable_elliptic_precond(2)
+    m.system.use_gspmd(group)
+    whole = m.system.gather_state
+    st = m.initial_state()
+    u1, info = m.system.step(st.u, st.u, st.u, {}, StepParams(*STEP))
+    step = (info.converged, info.iters, whole(u1))
+    u0 = whole(st.u)
+    st = m.make_driver().advance(st, {})
+    st.u = whole(st.u)
+    return precond_record(u0, step, st)
 
 
 SHARD_CFG = dict(nx=12, ny=16)
@@ -167,7 +254,36 @@ def main():
     ap.add_argument("--port", action="store_true")
     ap.add_argument("--ranks", type=int, default=2)
     ap.add_argument("--shard", action="store_true")
+    ap.add_argument("--precond", choices=["mg"], default=None)
+    ap.add_argument("--cheb", action="store_true")
     args = ap.parse_args()
+    precond = "cheb" if args.cheb else args.precond
+    if precond is not None:
+        ref = jax_precond(args.devices, precond)
+        print(json.dumps({"devices": args.devices, precond: ref}),
+              flush=True)
+        if args.port:
+            from fedm_tpu_torch.parallel import ranks
+
+            got = ranks.launch(port_precond, args.ranks, "cpu",
+                               (precond,))[0]
+            gaps = {"initial": max(abs(a - b) / abs(b) for a, b in
+                                   zip(got["initial"], ref["initial"])),
+                    "step": max(abs(a - b) / abs(b) for a, b in
+                                zip(got["step"]["col_norms"],
+                                    ref["step"]["col_norms"])),
+                    "advance": {k: (max(abs(a - b) / abs(b) for a, b in
+                                        zip(got["advance"][k],
+                                            ref["advance"][k]))
+                                    if k == "col_norms" else
+                                    abs(got["advance"][k] - ref["advance"][k])
+                                    / abs(ref["advance"][k])
+                                    if k in ("t", "dt") else
+                                    got["advance"][k] - ref["advance"][k])
+                                for k in ref["advance"]}}
+            print(json.dumps({"ranks": args.ranks, precond: got,
+                              "gaps": gaps}), flush=True)
+        return
     if args.shard:
         print(json.dumps({"devices": args.devices,
                           "shard": jax_shard(args.devices)}), flush=True)
