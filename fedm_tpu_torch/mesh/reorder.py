@@ -61,13 +61,6 @@ def cell_adjacency_csr(mesh: Mesh) -> Tuple[np.ndarray, np.ndarray]:
     return _csr_of_pairs(e, mesh.n_cells)
 
 
-def bandwidth(mesh: Mesh) -> int:
-    """Max |i - j| over cell-local vertex pairs."""
-    c = mesh.cells
-    return int(max(np.abs(c[:, i] - c[:, j]).max()
-                   for i in range(c.shape[1]) for j in range(i)))
-
-
 def rcm_reorder(mesh: Mesh) -> Tuple[Mesh, np.ndarray]:
     """(reordered mesh, perm) with perm[new] = old: a nodal field maps as
     f_new = f_old[perm]."""

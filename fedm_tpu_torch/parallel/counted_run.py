@@ -11,7 +11,7 @@ the accepted and rejected counts, t and dt after it, and over its
 attempts the Newton iterations, the Krylov iterations (BiCGStab and
 GMRES summed) and K1's launches on the rank's card. The entry
 point's own logs hold no Krylov counts (as the JAX tool's hold none);
-`chip_smoke.py` phase 12 holds them to the port's spread. The counters
+`chip_smoke.py` phase 12 records them. The counters
 are installed when this module is a process's main module, so the ranks
 that `parallel.ranks` spawns (which import the main module again) count
 too.
@@ -27,22 +27,17 @@ import torch
 from ..ops import ell_scatter as k1
 from ..solvers import newton
 from ..timestepping import driver
+from .rank_checks import _counting
 
-_COUNTS = {"newton": 0, "krylov": 0}
-
-
-def _counted(fn, key: str):
-    def run(*args, **kw):
-        out = fn(*args, **kw)
-        _COUNTS[key] += 1 if key == "newton" else int(out[2])
-        return out
-
-    return run
+# this advance's iterations by solver (`rank_checks._counting`'s)
+_COUNTS: dict = {}
+_LOG: list = []
 
 
 def _advance_logged(advance):
     def run(self, state, *args, **kw):
-        _COUNTS.update(newton=0, krylov=0)
+        _COUNTS.clear()
+        _LOG.clear()
         launched = sum(k1.LAUNCHES.values())
         out = advance(self, state, *args, **kw)
         rank = (torch.distributed.get_rank()
@@ -50,7 +45,9 @@ def _advance_logged(advance):
         line = json.dumps({
             "rank": rank, "n_accepted": out.n_accepted,
             "n_rejected": out.n_rejected, "t": out.t, "dt": out.dt,
-            **_COUNTS, "k1_launches": sum(k1.LAUNCHES.values()) - launched})
+            "newton": _COUNTS.get("newton_iteration", 0),
+            "krylov": _COUNTS.get("bicgstab", 0) + _COUNTS.get("gmres", 0),
+            "k1_launches": sum(k1.LAUNCHES.values()) - launched})
         with open(sys.argv[1], "a") as f:   # one short write: appends
             f.write(line + "\n")           # of the ranks do not mix
         return out
@@ -59,9 +56,9 @@ def _advance_logged(advance):
 
 
 def _install() -> None:
-    newton.newton_iteration = _counted(newton.newton_iteration, "newton")
-    newton.bicgstab = _counted(newton.bicgstab, "krylov")
-    newton.gmres = _counted(newton.gmres, "krylov")
+    for name in ("newton_iteration", "bicgstab", "gmres"):
+        setattr(newton, name,
+                _counting(_COUNTS, _LOG, name, getattr(newton, name)))
     driver.AdaptiveDriver.advance = _advance_logged(
         driver.AdaptiveDriver.advance)
 

@@ -484,6 +484,8 @@ def ops_record(m, st, group, spec: dict, smoother=None) -> dict:
     card whose rank holds electrode facets, K1 at its facet table against
     its plain version, and the control of the slab Poisson-row solve
     (`control_V`, `_poisson_control`). This rank's rows, on the host.
+    Spec `ops`: the operators to record ("F", "F64", "Jv", "B", "V",
+    "zline", "M"; default all; `control_F` goes with "F").
     `smoother`: that `ZLineSmoother`, built already (on the whole grid,
     as here)."""
     from unittest import mock as _mock
@@ -494,16 +496,19 @@ def ops_record(m, st, group, spec: dict, smoother=None) -> dict:
 
     dev = st.u.device
     sysm = m.system
-    sm = smoother or ZLineSmoother(
-        sysm.masked_stiffness_op(2), m._node_grid(m.space), m.space.n_dofs,
-        n_iter=2, dtype=m.batch.dtype, device=dev)
-    zline = sm.solve
+    want = set(spec.get("ops", ("F", "F64", "Jv", "B", "V", "zline", "M")))
+    if "zline" in want:
+        sm = smoother or ZLineSmoother(
+            sysm.masked_stiffness_op(2), m._node_grid(m.space),
+            m.space.n_dofs, n_iter=2, dtype=m.batch.dtype, device=dev)
+        zline = sm.solve
     n_i = sysm.cell_batch._structured[0] + 1
     rows = (0, m.space.n_dofs // n_i)
     if group is not None:
         sysm.use_gspmd(group)
-        zline = SlabLineSolver(sm, sysm.slabs,
-                               sysm.masked_stiffness_op(2)).solve
+        if "zline" in want:
+            zline = SlabLineSolver(sm, sysm.slabs,
+                                   sysm.masked_stiffness_op(2)).solve
         rows = (sysm.slabs.lo, sysm.slabs.hi)
     place = sysm.place_state
     u, u_old = place(st.u), place(st.u_old)
@@ -516,16 +521,18 @@ def ops_record(m, st, group, spec: dict, smoother=None) -> dict:
     r3 = put(rng.standard_normal((n, 3))).to(sysm.dtype)
     ops = sysm.operators(u, u_old, p)
     delta = (u - u_old).to(ops.dtype)
+    record = {
+        "F": lambda: ops.residual(delta),
+        "F64": lambda: sysm.operators(u, u_old, p, torch.float64
+                                      ).residual(delta.double()),
+        "Jv": lambda: ops.jacobian_action(delta)(v),
+        "B": lambda: ops.jacobian_blocks(delta),
+        "V": lambda: sysm._ell[1](r),
+        "zline": lambda: zline(r),
+        "M": lambda: sysm.block_precond_builder(ops)(delta)(r3)}
     out = {"rank": group.rank if group is not None else 0,
            "card": card_of(dev), "rows": rows,
-           "F": ops.residual(delta).cpu(),
-           "F64": sysm.operators(u, u_old, p, torch.float64
-                                 ).residual(delta.double()).cpu(),
-           "Jv": ops.jacobian_action(delta)(v).cpu(),
-           "B": ops.jacobian_blocks(delta).cpu(),
-           "V": sysm._ell[1](r).cpu(),
-           "zline": zline(r).cpu(),
-           "M": sysm.block_precond_builder(ops)(delta)(r3).cpu(),
+           **{k: f().cpu() for k, f in record.items() if k in want},
            "poisson_solve": type(sysm._ell[1].__self__).__name__,
            "grads_shape": tuple(ops.batches[0][0].grads.shape),
            "facet_rows": [int(b.dofs.shape[0]) for b, _ in ops.batches[1:]]}
@@ -533,10 +540,11 @@ def ops_record(m, st, group, spec: dict, smoother=None) -> dict:
         out["krylov"] = _profiled_krylov(sysm, ops, delta, group,
                                          spec["profile_iters"])
     if group is not None:
-        with _mock.patch.object(sysm.slabs, "halo",
-                                _dropping_below(sysm.slabs)):
-            out["control_F"] = sysm.operators(
-                u, u_old, p).residual(delta).cpu()
+        if "F" in want:
+            with _mock.patch.object(sysm.slabs, "halo",
+                                    _dropping_below(sysm.slabs)):
+                out["control_F"] = sysm.operators(
+                    u, u_old, p).residual(delta).cpu()
         control_V = _poisson_control(sysm._ell[1].__self__)
         if control_V is not None:
             out["control_V"] = control_V(r).cpu()

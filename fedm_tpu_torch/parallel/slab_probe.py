@@ -37,18 +37,15 @@ card. Per case it reports:
 on R = 2. Prints one JSON object; `--save PATH` also keeps the operators'
 tensors (`torch.save`).
 
-`--poisson mg|chebyshev`: the case's model with that Poisson-row
-solve (`rank_checks.slab_model`'s spec `poisson`); where the Chebyshev
-solve's V differs, item 2 also names the first op of its slab stiffness
-product that does ("A"). `poisson_row` holds one application of a built
-system's Poisson-row solve on emulated ranks against its own.
+A model spec's `poisson` (`rank_checks.slab_model`'s) puts another
+Poisson-row solve in place of the model's own. `poisson_row` holds one
+application of a built system's Poisson-row solve on emulated ranks
+against its own, bit for bit.
 
-With `--spread restart|window|fullgap` it measures instead the port's own
-spread of a march's Newton and Krylov counts on one card
+With `--spread restart|window` it measures instead the port's own spread
+of a march's Newton and Krylov counts on one card
 (`rank_checks.krylov_spread`): `chip_smoke.py` phase 12's march (the
-restart's 4 advances, the fresh window's forced move and 2 advances, or
-`bagheri_run --preset bagheri14-fullgap --precond mg`'s first
-`--advances` from t = 0)
+restart's 4 advances, or the fresh window's forced move and 2 advances)
 again from the state scaled by (1 + eps * noise) before the first
 advance, for each `--eps` and `--seed`; and, with `--one-rank`, the
 unperturbed march on one card and on one slab of a one-rank group, which
@@ -253,10 +250,6 @@ def _rank_ops(group, spec: dict):
     u, u_old = place(st.u), place(st.u_old)
     p = StepParams(st.t + st.dt, st.dt, st.dt_old)
     rec["_replay"] = {}
-    if spec.get("poisson") == "chebyshev":
-        rec["_replay"]["A"] = _stiffness_input(sysm, torch.as_tensor(
-            np.random.default_rng(spec.get("seed", 0) + 1).standard_normal(
-                m.space.n_dofs), device=dev))
     for key, dt in (("F", None), ("F64", torch.float64)):
         ops = sysm.operators(u, u_old, p, dt)
         rec["_replay"][key] = {
@@ -287,38 +280,6 @@ def _kernel_log(rep: dict, bi: int) -> list:
     with _OpIO(log):
         kernel(batch, batch.gather(rep["d_in"]), ctx)
     return log
-
-
-def _stiffness_input(sysm, x: torch.Tensor) -> tuple:
-    """(cell batch, its input, its cells) of the Poisson row's stiffness
-    product at the whole-grid vector `x` [n_dofs], as
-    `masked_stiffness_op(2)` forms them: on one card (cells None) or on
-    this rank's slab."""
-    mask, sl = sysm.bcs.mask[:, 2], sysm.slabs
-    if sl is None:
-        b = sysm.cell_batch
-        return b, torch.where(mask, 0.0, x).to(b.dtype), None
-    b = sysm.slab_batches[0][0]
-    x_in = torch.where(sl.own(mask), 0.0, sl.own(x)).to(b.dtype)
-    return b, sl.fill(x_in), b.cells
-
-
-def _stiffness_log(item: tuple) -> list:
-    batch, x, _ = item
-    log = []
-    with _OpIO(log):
-        batch.stiffness(batch.grad(batch.gather(x)))
-    return log
-
-
-def _stiffness_ops(one: tuple, ranks: list) -> list:
-    """Per rank, the first op of the Poisson row's stiffness product
-    (`_stiffness_input`'s) that differs on the rank's cells from one
-    card's, as `_kernels` gives it for the element kernels."""
-    log1 = _stiffness_log(one)
-    return [[{"batch": 0, "n": int(len(r[2])),
-              "ops": _first_differing_op(log1, _stiffness_log(r), r[2])}]
-            for r in ranks]
 
 
 def _on_cells(a: torch.Tensor, b: torch.Tensor, cells):
@@ -413,23 +374,20 @@ def exemptions(rounds: dict, blocks_bitwise: bool, parts: list,
                poisson_row_equal: bool) -> dict:
     """Per operator, whether its difference from one card is count
     rounding alone: `rounds` {"F", "F64": `_rounds_by_count` of that
-    kernel's first differing ops; "A", where the Poisson-row solve runs
-    the slab stiffness product (the Chebyshev solve), of that product's};
-    the residual and the float64 defect by their own kernels, J v, the
-    blocks and the z-line solve by the compute type's; the Poisson-row
-    solve V by "A" (a V-cycle, stencils and transfers only, never
-    differs); M by the compute type's, or by `block_apply` (`parts`: per
-    rank whether the block inversion and the block product equal one
-    card's at its rows) where the blocks are bit for bit, and its Poisson
-    row bit for bit or V exempt."""
+    kernel's first differing ops}; the residual and the float64 defect by
+    their own kernels, J v, the blocks and the z-line solve by the compute
+    type's; M by that, or by `block_apply` (`parts`: per rank whether the
+    block inversion and the block product equal one card's at its rows)
+    where the blocks are bit for bit; M's Poisson row must be bit for bit,
+    and the Poisson-row solve V is never exempt (every slab solve is held
+    bit for bit)."""
     cells = rounds.get("F", False)
-    v = rounds.get("A", False)
     by_blocks = (blocks_bitwise
                  and all(p["invert_blocks_equal"] for p in parts)
                  and not all(p["block_apply_equal"] for p in parts))
     return {"F": cells, "F64": rounds.get("F64", False), "Jv": cells,
-            "B": cells, "V": v, "zline": cells,
-            "M": (poisson_row_equal or v) and (cells or by_blocks)}
+            "B": cells, "V": False, "zline": cells,
+            "M": poisson_row_equal and (cells or by_blocks)}
 
 
 def probe(spec: dict, n_ranks: int, device, keep: bool = False) -> dict:
@@ -471,12 +429,6 @@ def probe(spec: dict, n_ranks: int, device, keep: bool = False) -> dict:
     out["kernels"] = {key: _kernels(one, res, key) for key in ("F", "F64")
                       if not out["ops"][key]["bitwise"]}
     rounds = {key: _rounds_by_count(v) for key, v in out["kernels"].items()}
-    if spec.get("poisson") == "chebyshev" and not out["ops"]["V"]["bitwise"]:
-        # the solve's only operator that is not elementwise on values
-        # moved bit for bit: the slab stiffness product
-        out["kernels"]["A"] = _stiffness_ops(
-            one["_replay"]["A"], [r["_replay"]["A"] for r in res])
-        rounds["A"] = _rounds_by_count(out["kernels"]["A"])
     # 3: M's parts at each rank's rows, on one card's blocks
     n = one["B"].shape[0]
     rng = np.random.default_rng(spec.get("seed", 0))
@@ -512,50 +464,29 @@ def probe(spec: dict, n_ranks: int, device, keep: bool = False) -> dict:
     return out
 
 
-def _slab_solve(group, system, r: torch.Tensor, stiffness: bool):
+def _slab_solve(group, system, r: torch.Tensor) -> torch.Tensor:
     """On one emulated rank: a shallow copy of `system` put on z-slabs
     (`use_gspmd`; `system` itself stays on one card), its Poisson-row
-    solve of this rank's rows of `r`, and with `stiffness` the input of
-    its slab stiffness product (`_stiffness_input`)."""
+    solve of this rank's rows of `r`."""
     s = copy.copy(system)
     s.use_gspmd(group)
-    return (s._ell[1](s.place_state(r)),
-            _stiffness_input(s, r) if stiffness else None)
+    return s._ell[1](s.place_state(r))
 
 
-def poisson_row(system, r: torch.Tensor, n_ranks: int,
-                keep: bool = False) -> dict:
+def poisson_row(system, r: torch.Tensor, n_ranks: int) -> dict:
     """One application of `system`'s Poisson-row solve to the whole-grid
     `r` on `n_ranks` ranks emulated as threads on its device, against the
-    system's own on one card: "ok" where bit for bit, or where the solve
-    is the Chebyshev solve, its slab stiffness product's first differing
-    op is shown to be count rounding (`_stiffness_ops`) and the rows hold
-    per column (`judge`). `keep`: also the tensors (`_one`, one card's;
-    `_ranks`, the emulated ranks' rows in order)."""
-    from ..solvers.chebyshev import ChebyshevSolve
-
+    system's own on one card: "bitwise", and where not, each column's
+    gap."""
     t0 = time.perf_counter()
-    cheb = isinstance(system._ell[1].__self__, ChebyshevSolve)
     ref = system._ell[1](r)
-    res = emulate(lambda g: _slab_solve(g, system, r, cheb), n_ranks,
-                  r.device)
-    got = torch.cat([v for v, _ in res])
+    got = torch.cat(emulate(lambda g: _slab_solve(g, system, r), n_ranks,
+                            r.device))
     out = {"ranks": n_ranks, "solver": type(system._ell[1].__self__).__name__,
-           "dtype": str(ref.dtype)[6:], "bitwise": torch.equal(got, ref),
-           "exempt": False}
+           "dtype": str(ref.dtype)[6:], "bitwise": torch.equal(got, ref)}
     if not out["bitwise"]:
         out["column_gaps"] = column_gaps(got, ref)
-        out["held"] = judge(got, ref)
-        if cheb:
-            ops = _stiffness_ops(_stiffness_input(system, r),
-                                 [a for _, a in res])
-            out["first_differing_ops"] = [b["ops"] for q in ops for b in q]
-            out["exempt"] = _rounds_by_count(ops)
-    out["ok"] = out["bitwise"] or (out["exempt"] and out["held"]["ok"])
-    out["bf16_control"] = judge(ref.to(torch.bfloat16), ref)
     out["s"] = time.perf_counter() - t0
-    if keep:
-        out["_one"], out["_ranks"] = ref, got
     return out
 
 
@@ -584,24 +515,9 @@ WINDOW_CORRIDOR = (0.0091, 0.0106, 1e-05)
 WINDOW_MOVED_TO = (0.009000000000000001, 0.0105, 1e-05)
 
 
-# the full-gap protocol under --precond mg: chip_smoke.py phase 12's
-# process job (`bagheri_run --preset bagheri14-fullgap --precond mg`) and
-# its one-card march, FULLGAP_ADVANCES advances from t = 0
-FULLGAP_ARGV = ["--preset", "bagheri14-fullgap", "--precond", "mg"]
-FULLGAP_ADVANCES = 3
-
-
-def march_spec(name: str, advances: int = None) -> tuple:
+def march_spec(name: str) -> tuple:
     """(march spec, index of the first advance) of `--spread`: the spec
-    `chip_smoke.py` phase 12 marches (`advances`: the full gap's count,
-    default FULLGAP_ADVANCES)."""
-    if name == "fullgap":
-        from ..bagheri_run import full_gap_corr
-
-        return ({"bagheri_argv": FULLGAP_ARGV,
-                 "corridor": full_gap_corr(1e-5),
-                 "plan": ["advance"] * (advances or FULLGAP_ADVANCES),
-                 "driver": {"fail_dt_cap": 0.7, "predictor": 1.0}}, 0)
+    `chip_smoke.py` phase 12 marches."""
     if name == "restart":
         from pathlib import Path
 
@@ -616,11 +532,11 @@ def march_spec(name: str, advances: int = None) -> tuple:
 
 
 def spread(name: str, device, eps: list, seeds: list,
-           one_rank: bool, advances: int = None) -> None:
+           one_rank: bool) -> None:
     """`--spread` (module docstring): one JSON line per run."""
     from .rank_checks import krylov_spread, slab_march, slab_march_one_rank
 
-    spec, first = march_spec(name, advances)
+    spec, first = march_spec(name)
     spec = {**spec, "device": str(device)}
     if one_rank:
         runs = [slab_march(None, spec), slab_march_one_rank(None, spec)]
@@ -652,15 +568,7 @@ def main(argv=None) -> dict:
                     help="also torch.save the report with the operators' "
                          "tensors (one card's, each rank's) of the last "
                          "case to this path")
-    ap.add_argument("--poisson", choices=["mg", "chebyshev"],
-                    default=None,
-                    help="the case's Poisson-row solve in place of its "
-                         "own (rank_checks.slab_model's spec `poisson`)")
-    ap.add_argument("--spread", choices=["restart", "window", "fullgap"],
-                    default=None)
-    ap.add_argument("--advances", type=int, default=None,
-                    help="--spread fullgap: advances from t = 0 (default "
-                         f"{FULLGAP_ADVANCES})")
+    ap.add_argument("--spread", choices=["restart", "window"], default=None)
     ap.add_argument("--eps", type=float, nargs="*", default=[])
     ap.add_argument("--seed", type=int, nargs="*", default=[0])
     ap.add_argument("--one-rank", action="store_true")
@@ -668,13 +576,11 @@ def main(argv=None) -> dict:
     if torch.device(a.device).type == "cuda" and not torch.cuda.is_available():
         sys.exit("no CUDA device (pass --device cpu)")
     if a.spread is not None:
-        spread(a.spread, a.device, a.eps, a.seed, a.one_rank, a.advances)
+        spread(a.spread, a.device, a.eps, a.seed, a.one_rank)
         return {}
     out = {}
     for name in a.case or ["restart", "mini"]:
         spec, R = case(name)
-        if a.poisson is not None:
-            spec = {**spec, "poisson": a.poisson}
         out[name] = probe(spec, a.ranks or R, a.device,
                           keep=a.save is not None)
     if a.save is not None:

@@ -20,7 +20,7 @@ dimensions as independent right-hand sides (a batched sweep's members).
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -151,10 +151,9 @@ class GeometricMultigrid:
             self.transfers.append(st)
 
         # the smoothers; the point-Chebyshev levels' parameters are kept
-        # (`level_lmax`: None on a line-smoothed level; `lmax`: the point
-        # levels' alone) for the V-cycle's z-slab form
+        # (`level_lmax`: None on a line-smoothed level) for the V-cycle's
+        # z-slab form
         self.smooth_degree, self.smooth_ratio = smooth_degree, smooth_ratio
-        self.lmax = []
         self.level_lmax: List[Optional[float]] = []
         self.smoothers = []
         for k, lev in enumerate(self.levels[:-1]):
@@ -178,7 +177,6 @@ class GeometricMultigrid:
                                             device=self.device)
                 cheb = chebyshev_solver(At, lmax / smooth_ratio, 1.05 * lmax,
                                         smooth_degree)
-                self.lmax.append(lmax)
                 self.level_lmax[k] = lmax
                 self.smoothers.append(
                     lambda r, cheb=cheb, lev=lev: cheb(
@@ -195,6 +193,11 @@ class GeometricMultigrid:
                                            device=self.device)
 
     # -- what a V-cycle on z-slabs reads (`parallel.slabs.SlabGeometricMG`)
+
+    @property
+    def lmax(self) -> List[float]:
+        """The point-smoothed levels' lmax, in level order."""
+        return [x for x in self.level_lmax if x is not None]
 
     @property
     def n_levels(self) -> int:
@@ -274,18 +277,3 @@ class GeometricMultigrid:
     def precond(self, r: torch.Tensor) -> torch.Tensor:
         return self._vcycle(0, r)
 
-
-def structured_hierarchy(make_space: Callable[[int, int], FunctionSpace],
-                         nx: int, ny: int, levels: int,
-                         min_cells: int = 4) -> List[FunctionSpace]:
-    """Spaces [(nx, ny), (nx/2, ny/2), ...] from a structured generator
-    closure `make_space(nx, ny)`, down to `levels` or until a halving
-    would leave fewer than `min_cells` cells along an axis."""
-    spaces = []
-    for _ in range(levels):
-        spaces.append(make_space(nx, ny))
-        if nx // 2 < min_cells or ny // 2 < min_cells:
-            break
-        nx //= 2
-        ny //= 2
-    return spaces

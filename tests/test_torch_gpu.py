@@ -357,12 +357,12 @@ def test_two_card_slab_mg_and_chebyshev(cuda):
     the slabs took last: the point-smoothed `GeometricMultigrid`
     (poisson_precond="mg") and the Chebyshev solve. One application of
     each (V) and the whole preconditioner (M) equal the same 2 ranks
-    emulated as threads on one card (`slab_probe.probe`) bit for bit, and
-    one card's bit for bit or, where the probe shows the difference to be
-    count rounding alone, per column by `judge`, which refuses each one's
-    bfloat16 rounding. The V-cycle is never exempt; each solve's control
-    (the smoother without its halo row from below, lmax x (1 + 1e-6))
-    differs from one card's V."""
+    emulated as threads on one card (`slab_probe.probe`) bit for bit. V
+    equals one card's bit for bit; M does, or where the probe shows the
+    difference to be count rounding alone, holds per column by `judge`,
+    which refuses its bfloat16 rounding. Each solve's control (the
+    smoother without its halo row from below, lmax x (1 + 1e-6)) differs
+    from one card's V."""
     _two_cards()
     from fedm_tpu_torch.parallel import rank_checks, ranks
     from fedm_tpu_torch.parallel.slab_probe import case, judge, probe
@@ -378,15 +378,15 @@ def test_two_card_slab_mg_and_chebyshev(cuda):
         assert [o[name]["poisson_solve"] for o in res] == [solvers[name]] * 2
         emu = probe(s, 2, cuda, keep=True)
         one = emu["_one"]
-        for k in ("V", "M"):
-            got = torch.cat([o[name][k] for o in res])
-            assert torch.equal(got, torch.cat([o[k] for o in
-                                               emu["_ranks"]])), (name, k)
-            assert torch.equal(got, one[k]) or (
-                emu["exempt"][k] and judge(got, one[k])["ok"]), (
-                name, k, emu["exempt"], judge(got, one[k]))
-            assert not judge(one[k].to(torch.bfloat16), one[k])["ok"]
-        assert name != "mg" or emu["exempt"]["V"] is False
+        got = {k: torch.cat([o[name][k] for o in res]) for k in ("V", "M")}
+        for k, x in got.items():
+            assert torch.equal(x, torch.cat([o[k] for o in
+                                             emu["_ranks"]])), (name, k)
+        assert torch.equal(got["V"], one["V"]), name
+        assert torch.equal(got["M"], one["M"]) or (
+            emu["exempt"]["M"] and judge(got["M"], one["M"])["ok"]), (
+            name, emu["exempt"], judge(got["M"], one["M"]))
+        assert not judge(one["M"].to(torch.bfloat16), one["M"])["ok"]
         control = torch.cat([o[name]["control_V"] for o in res])
         assert not torch.equal(control, one["V"]), name
 
